@@ -1,0 +1,230 @@
+"""RGB encoder: stride-8 ResNet-18 + PSP + upsampling decoder (eval forward).
+
+Counterpart of ``istnet_tpu/nn/resnet_psp.py``, with the same faithfulness
+notes: the reference's ResNet passes dilation 2/4 to layers 3/4 but never
+applies it, so the network actually computed is stride-8 and dilation-1
+everywhere, layers 3/4 at stride 1 with 1x1 downsample branches. That is
+the network built here; do not "fix" the dilation.
+
+Maps are NHWC. Dense convs run through cuDNN, 1x1 convs and the folded
+upsample of ``up_1`` through cuBLAS; ``up_2``'s fold-upsample conv with its
+BN + PReLU epilogue is the hand-written kernel of ``ops/fold_upsample.py``
+on CUDA tensors. Submodule names follow the reference torch keys
+(``model.feats.*``, ``model.psp.stages.{i}.1``, ``model.up_{1,2,3}.conv.{1,
+2,3}``, ``model.final.{0,1,2}``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from istnet_tpu_torch import ops
+from istnet_tpu_torch.nn.layers import (
+    BatchNorm,
+    Dropout2d,
+    PReLU,
+    adaptive_avg_pool,
+    conv2d_nhwc,
+    conv3x3_on_doubled,
+    pointwise,
+    resize_bilinear,
+    resize_bilinear_align_corners,
+)
+
+# (planes, stride, blocks) of the resnet18 stages the reference's
+# psp_models factory builds (it hardcodes resnet18)
+RESNET18_STAGES = ((64, 1, 2), (128, 2, 2), (256, 1, 2), (512, 1, 2))
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm(planes)
+        self.downsample = None
+        if stride != 1 or inplanes != planes:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, planes, 1, stride, bias=False),
+                BatchNorm(planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(conv2d_nhwc(x, self.conv1)))
+        out = self.bn2(conv2d_nhwc(out, self.conv2))
+        residual = x
+        if self.downsample is not None:
+            residual = self.downsample[1](conv2d_nhwc(x, self.downsample[0]))
+        return F.relu(out + residual)
+
+
+class ResNetTrunk(nn.Module):
+    """Stride-8 resnet18 trunk returning the layer-4 map (512 channels)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = BatchNorm(64)
+        inplanes = 64
+        for li, (planes, stride, depth) in enumerate(RESNET18_STAGES):
+            blocks = [BasicBlock(inplanes, planes, stride)]
+            blocks += [BasicBlock(planes, planes) for _ in range(depth - 1)]
+            self.add_module(f"layer{li + 1}", nn.Sequential(*blocks))
+            inplanes = planes
+        # the reference trunk's classifier: loaded, never run
+        self.fc = nn.Linear(512, 1000)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(conv2d_nhwc(x, self.conv1)))
+        x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = layer(x)
+        return x
+
+
+class PSPModule(nn.Module):
+    """Pyramid pooling: pool to 1/2/3/6, 1x1 conv each, upsample back
+    (align_corners=False), concat with the input, 1x1 bottleneck + ReLU."""
+
+    def __init__(self, features: int = 512, out_features: int = 1024,
+                 sizes=(1, 2, 3, 6)):
+        super().__init__()
+        self.stages = nn.ModuleList(
+            nn.Sequential(nn.AdaptiveAvgPool2d(size),
+                          nn.Conv2d(features, features, 1, bias=False))
+            for size in sizes)
+        self.bottleneck = nn.Conv2d(features * (len(sizes) + 1),
+                                    out_features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[1], x.shape[2]
+        priors = [resize_bilinear(pointwise(adaptive_avg_pool(
+            x, stage[0].output_size), stage[1]), h, w)
+                  for stage in self.stages]
+        priors.append(x)
+        return F.relu(pointwise(torch.cat(priors, dim=-1), self.bottleneck))
+
+
+class PSPUpsample(nn.Module):
+    """x2 bilinear (align_corners=True) + 3x3 conv + BN + PReLU, evaluated
+    as the fold (``conv3x3_on_doubled``). ``fold_kernel=True`` sends the
+    fold with its BN + PReLU epilogue through ``ops.fold_upsample_conv``:
+    the CUDA kernel on the card, the same plain fold on the CPU."""
+
+    def __init__(self, cin: int, cout: int, fold_kernel: bool = False):
+        super().__init__()
+        self.fold_kernel = fold_kernel
+        self.conv = nn.Sequential(
+            nn.Upsample(scale_factor=2, mode="bilinear", align_corners=True),
+            nn.Conv2d(cin, cout, 3, padding=1),
+            BatchNorm(cout),
+            PReLU())
+
+    def epilogue(self) -> torch.Tensor:
+        """(5, cout) rows [mean, invstd, scale, bias, alpha]."""
+        bn, prelu = self.conv[2], self.conv[3]
+        return torch.stack([bn.running_mean, bn.invstd(), bn.weight, bn.bias,
+                            prelu.weight.expand_as(bn.bias)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.conv[1]
+        k = conv.weight.permute(2, 3, 1, 0)                   # HWIO
+        if self.fold_kernel:
+            return ops.fold_upsample_conv(x, k, conv.bias, self.epilogue())
+        return self.conv[3](self.conv[2](conv3x3_on_doubled(x, k, conv.bias)))
+
+
+class _PSPNet(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.feats = ResNetTrunk()
+        self.psp = PSPModule(512, 1024)
+        self.drop_1 = Dropout2d(0.3)
+        self.up_1 = PSPUpsample(1024, 256)
+        self.up_2 = PSPUpsample(256, 64, fold_kernel=True)
+        self.up_3 = PSPUpsample(64, 64)
+        self.drop_2 = Dropout2d(0.15)
+        self.final = nn.Sequential(nn.Conv2d(64, 128, 1), BatchNorm(128),
+                                   PReLU())
+
+
+class ModifiedResnet(nn.Module):
+    """RGB encoder, (B, H, W, 3) -> per-pixel 128-d features at H x W.
+
+    ``forward`` computes the dense map; ``sparse_points`` evaluates the last
+    upsample stage and the final head only at the chosen pixels, exactly
+    equal in eval mode (``istnet_tpu/nn/resnet_psp.py:288-394``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.model = _PSPNet()
+
+    def _features96(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.model
+        p = m.drop_1(m.psp(m.feats(x)))
+        p = m.drop_2(m.up_1(p))
+        return m.drop_2(m.up_2(p))
+
+    def _final(self, v: torch.Tensor) -> torch.Tensor:
+        f = self.model.final
+        return f[2](f[1](pointwise(v, f[0])))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self._features96(x)
+        h = resize_bilinear_align_corners(h, 2 * h.shape[1], 2 * h.shape[2])
+        up3 = self.model.up_3.conv
+        h = up3[3](up3[2](conv2d_nhwc(h, up3[1])))
+        return self._final(h)
+
+    def sparse_points(self, x: torch.Tensor, choose: torch.Tensor
+                      ) -> torch.Tensor:
+        """(B, H, W, 3), (B, N) flat pixel indices -> (B, N, 128)."""
+        up3 = self.model.up_3.conv
+        return _sparse_head(self._features96(x), choose, up3[1],
+                            lambda v: up3[3](up3[2](v)), self._final)
+
+
+def _axis_taps(center: torch.Tensor, scale: float, in_size: int):
+    """Window base and (3, 3) lerp rows for output taps center-1..center+1
+    along one axis (``istnet_tpu/nn/resnet_psp.py:330-347``)."""
+    base = torch.clamp(torch.floor((center - 1).float() * scale).int(),
+                       0, in_size - 3)                              # (B, N)
+    offs = torch.tensor([-1, 0, 1], dtype=torch.int32, device=center.device)
+    tap = center[..., None] + offs                                  # (B, N, 3)
+    valid = (tap >= 0) & (tap < 2 * in_size)                        # zero pad
+    pos = tap.float() * scale
+    lo = torch.floor(pos).int()
+    hi = torch.clamp(lo + 1, max=in_size - 1)
+    w_hi = pos - lo.float()
+    win = torch.arange(3, dtype=torch.int32, device=center.device)
+    mat = ((win == (lo - base[..., None])[..., None]) * (1.0 - w_hi)[..., None]
+           + (win == (hi - base[..., None])[..., None]) * w_hi[..., None])
+    return base, mat * valid[..., None]
+
+
+def _sparse_head(h: torch.Tensor, choose: torch.Tensor, conv: nn.Conv2d,
+                 post_conv, final) -> torch.Tensor:
+    """resize(x2, align_corners) -> 3x3 conv (zero pad) evaluated at the
+    chosen output pixels only. All taps of one point live in a 3x3 input
+    patch at ``base = clamp(floor((r-1)*s), 0, H_in-3)``; per-point (3, 3)
+    lerp rows fold the resize, and the conv becomes one (9*C) matmul per
+    point."""
+    b, hin, win, c = h.shape
+    wout = 2 * win
+    n = choose.shape[1]
+    choose = choose.int()
+    base_y, mat_y = _axis_taps(choose // wout, (hin - 1) / (2 * hin - 1), hin)
+    base_x, mat_x = _axis_taps(choose % wout, (win - 1) / (wout - 1), win)
+
+    three = torch.arange(3, dtype=torch.int32, device=h.device)
+    rows = (base_y[..., None] + three).long()                       # (B, N, 3)
+    cols = (base_x[..., None] + three).long()
+    bidx = torch.arange(b, device=h.device)[:, None, None, None]
+    patches = h[bidx, rows[:, :, :, None], cols[:, :, None, :]]     # (B,N,3,3,C)
+    w = mat_y[:, :, :, None, :, None] * mat_x[:, :, None, :, None, :]
+    resized = torch.einsum("bnijyx,bnyxc->bnijc", w, patches)
+    wm = conv.weight.permute(0, 2, 3, 1).reshape(conv.out_channels, 9 * c)
+    v = F.linear(resized.reshape(b, n, 9 * c), wm, conv.bias)
+    return final(post_conv(v))

@@ -1,0 +1,13 @@
+"""Point-cloud ops and the fold-upsample conv, each a hand-written CUDA
+kernel on CUDA tensors and its plain PyTorch version on CPU tensors
+(``dispatch.py``)."""
+
+from istnet_tpu_torch.ops.dispatch import (  # noqa: F401
+    ball_query_group,
+    fold_upsample_conv,
+    fp_interpolate,
+    furthest_point_sample,
+    launch_counts,
+    reset_launch_counts,
+)
+from istnet_tpu_torch.ops.pointnet2 import gather_points  # noqa: F401

@@ -1,0 +1,138 @@
+"""Build and load the CUDA kernels of ``istnet_tpu_torch/csrc``.
+
+At first use the sources are compiled by ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``) into one shared library with a
+plain C interface, under ``istnet_tpu_torch/build/<hash>/``, and loaded with
+``ctypes``. The hash covers the sources and the flags, so an edit rebuilds.
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` turns a nonzero code into an exception.
+
+Nothing here runs when the module is imported, and there is no fallback: a
+missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+LIB_NAME = "libistnet_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: ctypes.CDLL | None = None
+_fns: dict[str, ctypes._CFuncPtr] = {}
+build_info: dict = {}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile the library unless this hash is already built; return it."""
+    out_dir = BUILD / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        build_info.setdefault("cached", True)
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    build_info.update(cached=False, seconds=seconds,
+                      log=proc.stdout + proc.stderr)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.istnet_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.istnet_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry ``name`` with its argument types declared."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = library().istnet_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+
+def cuda_inputs(name: str, *tensors):
+    """Validate the tensors a wrapper hands to its kernel and return them
+    contiguous. Each must be a float32 CUDA tensor on one device, and with
+    grad mode on none may require grad: the kernels are forward-only."""
+    dev = tensors[0].device
+    out = []
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: every input must be on {dev}, got "
+                             f"{t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: float32 inputs only, got {t.dtype}")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(f"{name}: the CUDA kernel is forward-only; "
+                               f"run under torch.no_grad()")
+        out.append(t.contiguous())
+    return out
+
+
+def stream(t) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

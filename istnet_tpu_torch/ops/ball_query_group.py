@@ -1,0 +1,74 @@
+"""Kernel 2: multi-radius ball query + grouping (``csrc/ball_query_group.cu``).
+
+Replaces the TPU kernel ``istnet_tpu/ops/ball_query_pallas.py:
+_bq_group_kernel_t``. The plain version is ``ops/pointnet2.py::
+ball_query_group``; the two give equal grouped values (the same radius
+decisions, then a copy and one subtraction).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from istnet_tpu_torch.ops import _build
+from istnet_tpu_torch.ops.pointnet2 import ball_query_group as plain
+from istnet_tpu_torch.ops.pointnet2 import radius_sq
+
+SOURCE = "istnet_tpu_torch/csrc/ball_query_group.cu"
+REPLACES = "istnet_tpu/ops/ball_query_pallas.py:445"
+MAX_RADII = 2
+MAX_NSAMPLE = 64
+
+__all__ = ["ball_query_group_cuda", "plain"]
+
+
+def ball_query_group_cuda(radii, nsamples, xyz: torch.Tensor,
+                          new_xyz: torch.Tensor,
+                          features: torch.Tensor | None = None) -> list:
+    """Per radius ``(B, M, ns, 3 + C)`` = ``[xyz[idx] - centroid,
+    features[idx]]``; up to 2 radii, ``ns <= 64``, all in one launch."""
+    radii, nsamples = tuple(radii), tuple(nsamples)
+    if not 1 <= len(radii) <= MAX_RADII or len(radii) != len(nsamples):
+        raise ValueError(f"ball_query_group: radii {radii}, nsamples "
+                         f"{nsamples} (1 or 2 radii, one nsample each)")
+    if any(not 1 <= ns <= MAX_NSAMPLE for ns in nsamples):
+        raise ValueError(f"ball_query_group: nsamples {nsamples} > "
+                         f"{MAX_NSAMPLE}")
+    tensors = (xyz, new_xyz) if features is None else (xyz, new_xyz, features)
+    tensors = _build.cuda_inputs("ball_query_group", *tensors)
+    xyz, new_xyz = tensors[:2]
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    if xyz.shape[-1] != 3 or new_xyz.shape != (b, m, 3) or n < 1:
+        raise ValueError(f"ball_query_group: xyz {tuple(xyz.shape)}, "
+                         f"new_xyz {tuple(new_xyz.shape)}")
+    cf = 0
+    feats_ptr = None
+    if features is not None:
+        features = tensors[2]
+        if features.shape[:2] != (b, n):
+            raise ValueError(f"ball_query_group: features "
+                             f"{tuple(features.shape)} vs xyz "
+                             f"{tuple(xyz.shape)}")
+        cf = features.shape[-1]
+        feats_ptr = features.data_ptr()
+    outs = [torch.empty(b, m, ns, 3 + cf, dtype=torch.float32,
+                        device=xyz.device) for ns in nsamples]
+    nr = len(radii)
+    r2 = (ctypes.c_float * nr)(*(radius_sq(r) for r in radii))
+    ns_arr = (ctypes.c_int * nr)(*nsamples)
+    out_arr = (ctypes.c_void_p * nr)(*(o.data_ptr() for o in outs))
+    P, I = _build.P, _build.I
+    fn = _build.function("istnet_ball_query_group",
+                         [P, P, P, I, I, I, I, I, P, P, P, P])
+    err = fn(xyz.data_ptr(), new_xyz.data_ptr(), feats_ptr, b, n, m, cf, nr,
+             ctypes.cast(r2, P), ctypes.cast(ns_arr, P),
+             ctypes.cast(out_arr, P), _build.stream(xyz))
+    _build.check(err, "istnet_ball_query_group")
+    ball_query_group_cuda.launches += 1
+    return outs
+
+
+ball_query_group_cuda.launches = 0

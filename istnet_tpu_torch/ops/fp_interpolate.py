@@ -1,0 +1,47 @@
+"""Kernel 3: fused 3-NN + inverse-distance interpolation
+(``csrc/fp_interpolate.cu``), one PointNet++ FP gather stage.
+
+Replaces the TPU kernel ``istnet_tpu/ops/three_nn_pallas.py:
+_fp_interp_kernel``. The plain version is ``ops/pointnet2.py::
+fp_interpolate``; the two pick the same neighbours and agree to float32
+summation order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from istnet_tpu_torch.ops import _build
+from istnet_tpu_torch.ops.pointnet2 import fp_interpolate as plain
+
+SOURCE = "istnet_tpu_torch/csrc/fp_interpolate.cu"
+REPLACES = "istnet_tpu/ops/three_nn_pallas.py:93"
+MAX_KNOWN = 8192
+
+__all__ = ["fp_interpolate_cuda", "plain"]
+
+
+def fp_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
+                        feats: torch.Tensor) -> torch.Tensor:
+    """``(B, N, 3), (B, M, 3), (B, M, C) -> (B, N, C)``; 3 <= M <= 8192."""
+    unknown, known, feats = _build.cuda_inputs("fp_interpolate", unknown,
+                                               known, feats)
+    b, n, _ = unknown.shape
+    m = known.shape[1]
+    c = feats.shape[-1]
+    if (unknown.shape[-1] != 3 or known.shape != (b, m, 3)
+            or feats.shape[:2] != (b, m) or not 3 <= m <= MAX_KNOWN):
+        raise ValueError(f"fp_interpolate: unknown {tuple(unknown.shape)}, "
+                         f"known {tuple(known.shape)}, feats "
+                         f"{tuple(feats.shape)}")
+    out = torch.empty(b, n, c, dtype=torch.float32, device=feats.device)
+    P, I = _build.P, _build.I
+    fn = _build.function("istnet_fp_interpolate", [P, P, P, I, I, I, I, P, P])
+    err = fn(unknown.data_ptr(), known.data_ptr(), feats.data_ptr(), b, n, m,
+             c, out.data_ptr(), _build.stream(feats))
+    _build.check(err, "istnet_fp_interpolate")
+    fp_interpolate_cuda.launches += 1
+    return out
+
+
+fp_interpolate_cuda.launches = 0
