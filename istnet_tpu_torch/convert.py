@@ -4,9 +4,17 @@ The port's submodules carry the reference torch key names
 (``tests/data/ref_torch_keys.json``), so the bridge is the JAX package's own
 exporter ``istnet_tpu.cli.convert_torch_istnet.export_state_dict``, which
 needs only numpy. It folds the JAX SharedMLP's dense bias (which torch's
-bias-free conv lacks) into the BN running mean, exact at eval, and fills
-the dead ``feats.fc`` weights with zeros. A reference model-zoo ``.pth``
-state dict loads into the port directly, with no bridge.
+bias-free conv lacks) into the BN running mean, exact at eval in float32,
+and fills the dead ``feats.fc`` weights with zeros. A reference model-zoo
+``.pth`` state dict loads into the port directly, with no bridge.
+
+Under the bf16 policy the fold is one rounding away from JAX on the layers
+that run unfused (SA stage 1 and the FP MLPs): JAX rounds ``x @ W + b`` to
+bf16 before its BN, the port rounds ``x @ W`` and subtracts the folded mean
+in its float32 BN, inside the bf16 tolerance. The fused SA stages fold BN
+at call time from these same values (``nn/pointnet2_msg.py::
+_fold_shared_mlp``), where ``b - mean`` is the exact negation of the
+bridged running mean, as in JAX.
 """
 
 from __future__ import annotations

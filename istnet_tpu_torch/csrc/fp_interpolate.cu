@@ -20,6 +20,12 @@
 // (d2, index) argmin rounds merge the lanes' lists. The TPU kernel's
 // (TN, M) one-hot interpolation matrix and its MXU contraction are replaced
 // by three direct row loads per channel, lanes along channels.
+//
+// Types: points f32; features and output f32, or both bf16. The weights
+// stay f32 and the weighted sum accumulates in f32 from the exact upcast of
+// each bf16 feature, with one rounding to bf16 at the store, as the TPU
+// kernel's exact bf16x3 weight split gives (three_nn_pallas.py:134-147).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -37,10 +43,16 @@ __device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
   return d < bd || (d == bd && i < bi);
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 fp_interp_kernel(const float* __restrict__ unknown, const float* __restrict__ known,
-                 const float* __restrict__ feats, int n, int m, int c,
-                 float* __restrict__ out) {
+                 const T* __restrict__ feats, int n, int m, int c,
+                 T* __restrict__ out) {
   extern __shared__ float s_known[];  // 3 * m coordinates, then m norms
   float* s_norm = s_known + 3 * m;
   const int b = blockIdx.y;
@@ -108,35 +120,47 @@ fp_interp_kernel(const float* __restrict__ unknown, const float* __restrict__ kn
 #pragma unroll
   for (int r = 0; r < 3; ++r) w[r] = w[r] / norm;
 
-  const float* f = feats + static_cast<size_t>(b) * m * c;
-  const float* f0 = f + static_cast<size_t>(sel_i[0]) * c;
-  const float* f1 = f + static_cast<size_t>(sel_i[1]) * c;
-  const float* f2 = f + static_cast<size_t>(sel_i[2]) * c;
-  float* o = out + (static_cast<size_t>(b) * n + u) * c;
+  const T* f = feats + static_cast<size_t>(b) * m * c;
+  const T* f0 = f + static_cast<size_t>(sel_i[0]) * c;
+  const T* f1 = f + static_cast<size_t>(sel_i[1]) * c;
+  const T* f2 = f + static_cast<size_t>(sel_i[2]) * c;
+  T* o = out + (static_cast<size_t>(b) * n + u) * c;
   for (int ch = lane; ch < c; ch += 32) {
-    o[ch] = w[0] * f0[ch] + w[1] * f1[ch] + w[2] * f2[ch];
+    store(o + ch, w[0] * to_f32(f0[ch]) + w[1] * to_f32(f1[ch]) +
+                      w[2] * to_f32(f2[ch]));
   }
+}
+
+template <typename T>
+cudaError_t launch(const float* unknown, const float* known, const void* feats,
+                   int b, int n, int m, int c, void* out, cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(4) * m * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fp_interp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((n + kWarps - 1) / kWarps, b);
+  fp_interp_kernel<T><<<grid, kWarps * 32, smem, s>>>(
+      unknown, known, static_cast<const T*>(feats), n, m, c,
+      static_cast<T*>(out));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// unknown (b, n, 3), known (b, m, 3), feats (b, m, c) -> out (b, n, c); all
-// f32 contiguous; 3 <= m <= 8192 (shared memory holds 16 bytes a point).
+// unknown (b, n, 3) and known (b, m, 3) f32, feats (b, m, c) -> out
+// (b, n, c), both bf16 if bf16 else f32; all contiguous; 3 <= m <= 8192
+// (shared memory holds 16 bytes a point).
 extern "C" int istnet_fp_interpolate(const float* unknown, const float* known,
-                                     const float* feats, int b, int n, int m,
-                                     int c, float* out, void* stream) {
+                                     const void* feats, int b, int n, int m,
+                                     int c, void* out, int bf16, void* stream) {
   if (m < 3 || m > 8192) return static_cast<int>(cudaErrorInvalidValue);
   if (b <= 0 || n <= 0 || c <= 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(4) * m * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fp_interp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((n + kWarps - 1) / kWarps, b);
-  fp_interp_kernel<<<grid, kWarps * 32, smem, s>>>(unknown, known, feats, n, m,
-                                                   c, out);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      bf16 ? launch<__nv_bfloat16>(unknown, known, feats, b, n, m, c, out, s)
+           : launch<float>(unknown, known, feats, b, n, m, c, out, s);
+  return static_cast<int>(e);
 }

@@ -5,6 +5,9 @@ Counterpart of ``__graft_entry__.entry()`` / ``_make_inputs``: the full-width
 a batch of instance crops (B=32, N=1024 points, 192 x 192 RGB) made from a
 numpy ``RandomState(seed)`` exactly as the JAX entry makes them.
 
+``build_serving_model`` sets a compute policy first, as ``bench.py:96-99``
+sets the bf16 deployment precision before ``entry()``.
+
 Weights are random: torch's default layer init drawn from a
 ``torch.Generator`` (the ResNet trunk's convs with the reference's
 normal(0, sqrt(2/n)) init), then BatchNorm statistics and affines and the
@@ -21,6 +24,7 @@ import torch
 from torch import nn
 
 from istnet_tpu_torch.models.ist_net import ISTNet
+from istnet_tpu_torch.nn import precision
 from istnet_tpu_torch.nn.layers import BatchNorm, PReLU
 from istnet_tpu_torch.nn.resnet_psp import ResNetTrunk
 
@@ -86,3 +90,13 @@ def build_model(device: str | torch.device = "cpu", seed: int = 0,
     init_weights_(model, torch.Generator().manual_seed(seed))
     perturb_eval_stats_(model, seed)
     return model.eval().to(device)
+
+
+def build_serving_model(dtype: torch.dtype = torch.bfloat16,
+                        device: str | torch.device = "cpu", seed: int = 0,
+                        sa_npoints=SA_NPOINTS) -> ISTNet:
+    """``build_model`` under the compute policy ``dtype`` (bf16 by default,
+    the deployment precision). The policy is global and read at every
+    forward; ``precision.set_compute_dtype`` restores another one."""
+    precision.set_compute_dtype(dtype)
+    return build_model(device, seed, sa_npoints)

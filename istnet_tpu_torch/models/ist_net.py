@@ -8,7 +8,8 @@ Inputs are a dict of tensors, channel-last as in the JAX package:
   category_label (B,)           class id 0..nclass-1
 
 Outputs: ``pred_rotation`` (B, 3, 3), ``pred_translation`` (B, 3),
-``pred_size`` (B, 3), ``pred_qo`` (B, N, 3).
+``pred_size`` (B, 3), ``pred_qo`` (B, N, 3), all float32 under either
+compute policy (``nn/precision.py``), as is the centroid ``c``.
 
 Only the eval branch is ported; ``cam_enhancer`` and ``world_enhancer``
 exist so that a full state dict loads strictly, and are not run.

@@ -4,6 +4,11 @@ Counterpart of ``istnet_tpu/nn/estimators.py``. Per-point MLPs are 1x1
 ``Conv1d`` chains applied on the last axis of ``(B, N, C)`` data (one matmul
 each); the pose heads are ``Linear`` chains. Submodule names follow the
 reference torch keys (``pts_mlp1.0``, ``rotation_estimator.4``, ...).
+
+The MLPs run in the compute dtype (``nn/precision.py``); the pose heads'
+last layers and the NOCS head return float32 (``istnet_tpu/nn/
+estimators.py:49-55, :82``), and the rotation is orthonormalised in
+float32.
 """
 
 from __future__ import annotations
@@ -48,9 +53,10 @@ class PoseHeads(nn.Module):
         self.size_estimator = MLP(512, (512, 256, 3), False, linear=True)
 
     def heads(self, feat: torch.Tensor):
-        r6 = self.rotation_estimator(feat)
+        r6 = self.rotation_estimator(feat).float()
         r = ortho6d_to_mat(r6[:, :3], r6[:, 3:])
-        return r, self.translation_estimator(feat), self.size_estimator(feat)
+        return (r, self.translation_estimator(feat).float(),
+                self.size_estimator(feat).float())
 
 
 def _with_global_mean(x: torch.Tensor) -> torch.Tensor:
@@ -73,7 +79,7 @@ class FeatureDeformer(nn.Module):
         b, n, _ = pts.shape
         deform = torch.cat([self.pts_mlp1(pts), pts_local, rgb_local], dim=-1)
         pts_local_w = self.deform_mlp2(_with_global_mean(self.deform_mlp1(deform)))
-        nocs = self.pred_nocs(pts_local_w).reshape(b, n, self.nclass, 3)
+        nocs = self.pred_nocs(pts_local_w).float().reshape(b, n, self.nclass, 3)
         pts_w = nocs[torch.arange(b, device=cls.device), :, cls.long()]
         return pts_local_w, pts_w
 

@@ -7,6 +7,13 @@ Parameters keep the reference torch layouts (``Conv2d`` weights OIHW, 1x1
 point convs ``(O, I, 1[, 1])``) so that state dicts use the reference keys;
 a convolution runs on an NHWC tensor through a permuted NCHW view, which
 cuDNN takes as the channels-last memory format without a copy.
+
+Dtypes follow the compute policy (``nn/precision.py``) explicitly, where
+the JAX layer casts, not through ``torch.autocast``: convs and dense layers
+cast input, weight and bias to the compute dtype on each call (parameters
+stay float32); BatchNorm computes in float32 and casts back to its input's
+dtype; PReLU casts its slope to the input's dtype; the interpolation
+matrices of the resizes are cast to the map's dtype.
 """
 
 from __future__ import annotations
@@ -16,26 +23,36 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from istnet_tpu_torch.nn.precision import compute_dtype
+
+
+def cast(t: torch.Tensor | None) -> torch.Tensor | None:
+    """``t`` in the compute dtype (None stays None)."""
+    return None if t is None else t.to(compute_dtype())
+
 
 def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """Apply ``conv`` (its weight, bias, stride, padding) to an NHWC map."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, conv.stride,
-                 conv.padding, conv.dilation)
+    """Apply ``conv`` (its weight, bias, stride, padding) to an NHWC map, in
+    the compute dtype (``istnet_tpu/nn/layers.py:106-113``)."""
+    y = F.conv2d(cast(x).permute(0, 3, 1, 2), cast(conv.weight),
+                 cast(conv.bias), conv.stride, conv.padding, conv.dilation)
     return y.permute(0, 2, 3, 1)
 
 
 def pointwise(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
-    """A 1x1 conv (``Conv1d``/``Conv2d`` weight ``(O, I, 1[, 1])``) on the
-    last axis of channel-last data: one matmul."""
-    return F.linear(x, conv.weight.flatten(1), conv.bias)
+    """A 1x1 conv (``Conv1d``/``Conv2d`` weight ``(O, I, 1[, 1])``) or a
+    ``Linear`` on the last axis of channel-last data: one matmul in the
+    compute dtype (``istnet_tpu/nn/layers.py:140-148``)."""
+    return F.linear(cast(x), cast(conv.weight.flatten(1)), cast(conv.bias))
 
 
 class BatchNorm(nn.Module):
     """Eval BatchNorm over the last axis with the running statistics:
     ``(x - mean) * rsqrt(var + eps) * weight + bias`` in that order, as
-    ``istnet_tpu/nn/layers.py::BatchNorm`` evaluates it. The parameter and
-    buffer names are those of ``torch.nn.BatchNorm2d``. Batch statistics
-    (training) come with the train branch."""
+    ``istnet_tpu/nn/layers.py::BatchNorm`` evaluates it, in float32 with
+    one rounding back to the input's dtype (``layers.py:219-220``). The
+    parameter and buffer names are those of ``torch.nn.BatchNorm2d``. Batch
+    statistics (training) come with the train branch."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -51,8 +68,8 @@ class BatchNorm(nn.Module):
         if self.training:
             raise NotImplementedError("BatchNorm batch statistics (training) "
                                       "are not ported yet; call .eval()")
-        y = (x - self.running_mean) * self.invstd()
-        return y * self.weight + self.bias
+        y = (x.float() - self.running_mean) * self.invstd()
+        return (y * self.weight + self.bias).to(x.dtype)
 
     def invstd(self) -> torch.Tensor:
         return torch.rsqrt(self.running_var + self.eps)
@@ -60,14 +77,15 @@ class BatchNorm(nn.Module):
 
 class PReLU(nn.Module):
     """Single shared slope, init 0.25 (``torch.nn.PReLU()``'s key layout),
-    evaluated as ``where(x >= 0, x, a * x)``."""
+    evaluated as ``where(x >= 0, x, a * x)`` with ``a`` in the input's
+    dtype (``layers.py:229``)."""
 
     def __init__(self, init: float = 0.25):
         super().__init__()
         self.weight = nn.Parameter(torch.full((1,), init))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.weight * x)
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
 
 
 class Dropout2d(nn.Module):
@@ -122,6 +140,8 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 def _as_tensor(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``a`` cast to ``like``'s dtype (bf16 rounds the interpolation
+    weights themselves, as JAX's ``jnp.asarray(a, x.dtype)``)."""
     return torch.tensor(a, dtype=like.dtype, device=like.device)
 
 
@@ -157,7 +177,9 @@ def conv3x3_on_doubled(x: torch.Tensor, k: torch.Tensor,
 
     This is the plain version of the fold-upsample kernel
     (``ops/fold_upsample.py``). ``x`` (B, h, w, Cin); ``k`` (3, 3, Cin, Cout)
-    HWIO; returns (B, 2h, 2w, Cout).
+    HWIO; returns (B, 2h, 2w, Cout). ``x``, ``k`` and ``b`` share one dtype;
+    in bf16 each contraction accumulates in float32 and rounds once, and
+    the bias add rounds again.
     """
     bsz, h, w, cin = x.shape
     cout = k.shape[-1]

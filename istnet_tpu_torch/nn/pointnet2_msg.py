@@ -5,7 +5,11 @@ Counterpart of ``istnet_tpu/nn/pointnet2_msg.py``: 4 set-abstraction stages
 the slots) and 4 feature-propagation stages (fused 3-NN interpolation ->
 SharedMLP) back to N points. FPS, the grouping and the interpolation go
 through ``istnet_tpu_torch.ops``: CUDA kernels on the card, their plain
-versions on the CPU; the SharedMLPs are cuBLAS matmuls.
+versions on the CPU; the SharedMLPs are cuBLAS matmuls. Under the bf16
+policy at eval, SA stages with features (2-4) run whole as the fused SA
+kernel (``ops.sa_msg_fused``) with the BN folded into the weights; stage
+1 stays unfused, as the JAX default keeps it (``istnet_tpu/ops/dispatch.py:
+155``).
 
 Submodule names follow the reference torch keys (``SA_modules.{i}.mlps.{j}
 .layer{k}.conv`` / ``.normlayer.bn``, ``FP_modules.{i}.mlp.layer{k}``), so
@@ -22,6 +26,7 @@ from torch import nn
 
 from istnet_tpu_torch import ops
 from istnet_tpu_torch.nn.layers import BatchNorm, pointwise
+from istnet_tpu_torch.nn.precision import compute_dtype
 
 SA_MLPS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256))
 SA_NSAMPLES = (16, 32)
@@ -57,6 +62,22 @@ class SharedMLP(nn.Sequential):
                             _SharedMLPLayer(channels[k], channels[k + 1]))
 
 
+def _fold_shared_mlp(sm: SharedMLP) -> tuple:
+    """Eval-BN folding of a SharedMLP (``istnet_tpu/nn/pointnet2_msg.py:
+    50-69``), in float32: per layer ``(W', b')`` with ``W' = W * k`` and
+    ``b' = (b - mean) * k + bias``, ``k = scale * rsqrt(var + eps)``, so that
+    ``relu(x @ W' + b') == relu(BN(x @ W + b))``. The JAX dense bias ``b``
+    sits in the running mean here (the weight bridge puts it there), so
+    ``b - mean`` is ``-running_mean``, an exact negation."""
+    layers = []
+    for layer in sm:
+        bn = layer.normlayer.bn
+        k = bn.weight * bn.invstd()
+        w = layer.conv.weight.flatten(1).t()                # (c_in, c_out)
+        layers.append((w * k, -bn.running_mean * k + bn.bias))
+    return tuple(layers)
+
+
 class PointnetSAModuleMSG(nn.Module):
     """Set abstraction with multi-scale grouping (use_xyz=True)."""
 
@@ -71,8 +92,18 @@ class PointnetSAModuleMSG(nn.Module):
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None):
         fps_idx = ops.furthest_point_sample(xyz, self.npoint)
         new_xyz = ops.gather_points(xyz, fps_idx)             # (B, np, 3)
+        dt = compute_dtype()
+        # the gate of pointnet2_msg.py:98-107: eval, the bf16 policy (the
+        # kernel's MLP runs bf16, which an f32 policy must never take) and
+        # features present (stage 1 stays unfused)
+        if (not self.training and dt == torch.bfloat16
+                and features is not None):
+            folded = [_fold_shared_mlp(mlp) for mlp in self.mlps]
+            fused = ops.sa_msg_fused(self.radii, self.nsamples, xyz, new_xyz,
+                                     features, folded)
+            return new_xyz, torch.cat([f.to(dt) for f in fused], dim=-1)
         grouped = ops.ball_query_group(self.radii, self.nsamples, xyz,
-                                       new_xyz, features)
+                                       new_xyz, features, out_dtype=dt)
         feats = [mlp(g).amax(dim=2) for g, mlp in zip(grouped, self.mlps)]
         return new_xyz, torch.cat(feats, dim=-1)
 

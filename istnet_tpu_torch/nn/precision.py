@@ -1,19 +1,46 @@
 """Compute-dtype policy (counterpart of ``istnet_tpu/nn/precision.py``).
 
-This slice of the port supports the float32 policy only, the default of the
-JAX package (``config/ist_net_default.yaml: compute_dtype: float32``). The
-bf16 policy comes with the fused SA kernel.
+Two policies, as in the JAX package:
 
-float32 here means true float32 on the card: PyTorch runs float32
-convolutions through cuDNN in TF32 by default (``torch.backends.cudnn
-.allow_tf32`` is True), which keeps only about three decimal digits. Under
-the float32 policy ``apply_policy`` turns TF32 off for both cuBLAS matmuls
-and cuDNN convolutions. TF32 is a later, measured choice.
+- float32 (the default; ``config/ist_net_default.yaml: compute_dtype:
+  float32``);
+- bfloat16, the deployment precision ``bench.py`` sets: convs and dense
+  layers run in bf16 with float32 parameters cast on each call; BatchNorm
+  arithmetic, the geometry (FPS, ball query, 3-NN distances) and the pose
+  and NOCS head outputs stay float32. Only this policy's eval forward takes
+  the fused SA kernel (``nn/pointnet2_msg.py``).
+
+The policy is read when a module runs (JAX reads it when it traces), so set
+it before a forward and restore it after, as the tests do:
+
+    from istnet_tpu_torch.nn import precision
+    precision.set_compute_dtype(torch.bfloat16)
+
+``apply_policy`` sets the backend flags: TF32 stays off under both policies
+(PyTorch runs float32 convolutions through cuDNN in TF32 by default, which
+keeps only about three decimal digits), and under bf16 cuBLAS must not
+reduce bf16 GEMM partial sums in bf16
+(``allow_bf16_reduced_precision_reduction`` defaults to True): JAX
+accumulates bf16 products in float32.
 """
 
 from __future__ import annotations
 
 import torch
+
+_COMPUTE_DTYPE = torch.float32
+_POLICIES = (torch.float32, torch.bfloat16)
+
+
+def set_compute_dtype(dtype: torch.dtype) -> None:
+    global _COMPUTE_DTYPE
+    if dtype not in _POLICIES:
+        raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
+    _COMPUTE_DTYPE = dtype
+
+
+def compute_dtype() -> torch.dtype:
+    return _COMPUTE_DTYPE
 
 
 def apply_policy() -> None:
@@ -21,3 +48,5 @@ def apply_policy() -> None:
     on the card (``ISTNet.forward`` does)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if _COMPUTE_DTYPE == torch.bfloat16:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -6,10 +6,11 @@ applies it, so the network actually computed is stride-8 and dilation-1
 everywhere, layers 3/4 at stride 1 with 1x1 downsample branches. That is
 the network built here; do not "fix" the dilation.
 
-Maps are NHWC. Dense convs run through cuDNN, 1x1 convs and the folded
-upsample of ``up_1`` through cuBLAS; ``up_2``'s fold-upsample conv with its
-BN + PReLU epilogue is the hand-written kernel of ``ops/fold_upsample.py``
-on CUDA tensors. Submodule names follow the reference torch keys
+Maps are NHWC, in the compute dtype (``nn/precision.py``). Dense convs run
+through cuDNN, 1x1 convs and the folded upsample of ``up_1`` through
+cuBLAS; ``up_2``'s fold-upsample conv with its BN + PReLU epilogue is the
+hand-written kernel of ``ops/fold_upsample.py`` on CUDA tensors, in either
+dtype. Submodule names follow the reference torch keys
 (``model.feats.*``, ``model.psp.stages.{i}.1``, ``model.up_{1,2,3}.conv.{1,
 2,3}``, ``model.final.{0,1,2}``).
 """
@@ -26,6 +27,7 @@ from istnet_tpu_torch.nn.layers import (
     Dropout2d,
     PReLU,
     adaptive_avg_pool,
+    cast,
     conv2d_nhwc,
     conv3x3_on_doubled,
     pointwise,
@@ -130,10 +132,11 @@ class PSPUpsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv[1]
-        k = conv.weight.permute(2, 3, 1, 0)                   # HWIO
+        k = cast(conv.weight.permute(2, 3, 1, 0))             # HWIO
+        x, b = cast(x), cast(conv.bias)
         if self.fold_kernel:
-            return ops.fold_upsample_conv(x, k, conv.bias, self.epilogue())
-        return self.conv[3](self.conv[2](conv3x3_on_doubled(x, k, conv.bias)))
+            return ops.fold_upsample_conv(x, k, b, self.epilogue())
+        return self.conv[3](self.conv[2](conv3x3_on_doubled(x, k, b)))
 
 
 class _PSPNet(nn.Module):
@@ -210,7 +213,10 @@ def _sparse_head(h: torch.Tensor, choose: torch.Tensor, conv: nn.Conv2d,
     chosen output pixels only. All taps of one point live in a 3x3 input
     patch at ``base = clamp(floor((r-1)*s), 0, H_in-3)``; per-point (3, 3)
     lerp rows fold the resize, and the conv becomes one (9*C) matmul per
-    point."""
+    point. The lerp matrices are cast to the patches' dtype; in bf16 the
+    lerp is a 9-term sum in bf16, rounding after every product and add, as
+    the JAX graph writes it (``resnet_psp.py:380-390``); in float32 it is
+    one contraction, equal up to float32 summation order."""
     b, hin, win, c = h.shape
     wout = 2 * win
     n = choose.shape[1]
@@ -223,8 +229,13 @@ def _sparse_head(h: torch.Tensor, choose: torch.Tensor, conv: nn.Conv2d,
     cols = (base_x[..., None] + three).long()
     bidx = torch.arange(b, device=h.device)[:, None, None, None]
     patches = h[bidx, rows[:, :, :, None], cols[:, :, None, :]]     # (B,N,3,3,C)
+    mat_y, mat_x = mat_y.to(h.dtype), mat_x.to(h.dtype)
     w = mat_y[:, :, :, None, :, None] * mat_x[:, :, None, :, None, :]
-    resized = torch.einsum("bnijyx,bnyxc->bnijc", w, patches)
+    if h.dtype == torch.float32:
+        resized = torch.einsum("bnijyx,bnyxc->bnijc", w, patches)
+    else:
+        resized = sum(w[..., y, x, None] * patches[:, :, None, None, y, x, :]
+                      for y in range(3) for x in range(3))
     wm = conv.weight.permute(0, 2, 3, 1).reshape(conv.out_channels, 9 * c)
-    v = F.linear(resized.reshape(b, n, 9 * c), wm, conv.bias)
+    v = F.linear(resized.reshape(b, n, 9 * c), cast(wm), cast(conv.bias))
     return final(post_conv(v))

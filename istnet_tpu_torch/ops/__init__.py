@@ -1,6 +1,6 @@
-"""Point-cloud ops and the fold-upsample conv, each a hand-written CUDA
-kernel on CUDA tensors and its plain PyTorch version on CPU tensors
-(``dispatch.py``)."""
+"""Point-cloud ops, the fused SA stage and the fold-upsample conv, each a
+hand-written CUDA kernel on CUDA tensors and its plain PyTorch version on
+CPU tensors (``dispatch.py``)."""
 
 from istnet_tpu_torch.ops.dispatch import (  # noqa: F401
     ball_query_group,
@@ -9,5 +9,6 @@ from istnet_tpu_torch.ops.dispatch import (  # noqa: F401
     furthest_point_sample,
     launch_counts,
     reset_launch_counts,
+    sa_msg_fused,
 )
 from istnet_tpu_torch.ops.pointnet2 import gather_points  # noqa: F401

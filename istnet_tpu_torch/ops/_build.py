@@ -1,9 +1,11 @@
 """Build and load the CUDA kernels of ``istnet_tpu_torch/csrc``.
 
 At first use the sources are compiled by ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into one shared library with a
-plain C interface, under ``istnet_tpu_torch/build/<hash>/``, and loaded with
-``ctypes``. The hash covers the sources and the flags, so an edit rebuilds.
+(``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` per ``.cu`` file,
+all started together, then linked into one shared library with a plain C
+interface under ``istnet_tpu_torch/build/<hash>/`` and loaded with
+``ctypes``. The hash covers the sources (headers included) and the flags,
+so an edit rebuilds.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a nonzero code into an exception.
 
@@ -29,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 LIB_NAME = "libistnet_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: ctypes.CDLL | None = None
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -58,6 +60,19 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def build() -> Path:
     """Compile the library unless this hash is already built; return it."""
     out_dir = BUILD / _digest()
@@ -66,20 +81,23 @@ def build() -> Path:
         build_info.setdefault("cached", True)
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    build_info.update(cached=False, seconds=seconds,
-                      log=proc.stdout + proc.stderr)
+    nvcc = find_nvcc()
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        objs, cmds = [], []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            objs.append(str(tmp / (src.stem + ".o")))
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)])
+        t0 = time.perf_counter()
+        log = _run_all(cmds)
+        so = str(tmp / LIB_NAME)
+        log += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-shared", "-o", so, *objs]])
+        seconds = time.perf_counter() - t0
+        os.replace(so, lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    build_info.update(cached=False, seconds=seconds, log=log)
     return lib
 
 
@@ -114,18 +132,27 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 
 
-def cuda_inputs(name: str, *tensors):
+F32 = (torch.float32,)
+BF16 = (torch.bfloat16,)
+F32_BF16 = (torch.float32, torch.bfloat16)
+
+
+def cuda_inputs(name: str, *tensors, dtypes=None):
     """Validate the tensors a wrapper hands to its kernel and return them
-    contiguous. Each must be a float32 CUDA tensor on one device, and with
-    grad mode on none may require grad: the kernels are forward-only."""
+    contiguous. Each must be a CUDA tensor on one device, of a dtype its
+    kernel takes: ``dtypes`` gives one tuple of accepted dtypes per tensor
+    (float32 for all when omitted). With grad mode on none may require
+    grad: the kernels are forward-only."""
     dev = tensors[0].device
+    dtypes = dtypes or [F32] * len(tensors)
     out = []
-    for t in tensors:
+    for t, ok in zip(tensors, dtypes, strict=True):
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name}: every input must be on {dev}, got "
                              f"{t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 inputs only, got {t.dtype}")
+        if t.dtype not in ok:
+            raise TypeError(f"{name}: {' or '.join(map(str, ok))} inputs "
+                            f"only, got {t.dtype}")
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(f"{name}: the CUDA kernel is forward-only; "
                                f"run under torch.no_grad()")

@@ -26,9 +26,11 @@ __all__ = ["ball_query_group_cuda", "plain"]
 
 def ball_query_group_cuda(radii, nsamples, xyz: torch.Tensor,
                           new_xyz: torch.Tensor,
-                          features: torch.Tensor | None = None) -> list:
+                          features: torch.Tensor | None = None,
+                          out_dtype: torch.dtype = torch.float32) -> list:
     """Per radius ``(B, M, ns, 3 + C)`` = ``[xyz[idx] - centroid,
-    features[idx]]``; up to 2 radii, ``ns <= 64``, all in one launch."""
+    features[idx]]`` in ``out_dtype``; up to 2 radii, ``ns <= 64``, all in
+    one launch."""
     radii, nsamples = tuple(radii), tuple(nsamples)
     if not 1 <= len(radii) <= MAX_RADII or len(radii) != len(nsamples):
         raise ValueError(f"ball_query_group: radii {radii}, nsamples "
@@ -36,8 +38,12 @@ def ball_query_group_cuda(radii, nsamples, xyz: torch.Tensor,
     if any(not 1 <= ns <= MAX_NSAMPLE for ns in nsamples):
         raise ValueError(f"ball_query_group: nsamples {nsamples} > "
                          f"{MAX_NSAMPLE}")
+    if out_dtype not in _build.F32_BF16:
+        raise TypeError(f"ball_query_group: out_dtype {out_dtype}")
     tensors = (xyz, new_xyz) if features is None else (xyz, new_xyz, features)
-    tensors = _build.cuda_inputs("ball_query_group", *tensors)
+    tensors = _build.cuda_inputs(
+        "ball_query_group", *tensors,
+        dtypes=[_build.F32, _build.F32, _build.F32_BF16][:len(tensors)])
     xyz, new_xyz = tensors[:2]
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
@@ -46,6 +52,7 @@ def ball_query_group_cuda(radii, nsamples, xyz: torch.Tensor,
                          f"new_xyz {tuple(new_xyz.shape)}")
     cf = 0
     feats_ptr = None
+    feats_bf16 = False
     if features is not None:
         features = tensors[2]
         if features.shape[:2] != (b, n):
@@ -54,18 +61,20 @@ def ball_query_group_cuda(radii, nsamples, xyz: torch.Tensor,
                              f"{tuple(xyz.shape)}")
         cf = features.shape[-1]
         feats_ptr = features.data_ptr()
-    outs = [torch.empty(b, m, ns, 3 + cf, dtype=torch.float32,
-                        device=xyz.device) for ns in nsamples]
+        feats_bf16 = features.dtype == torch.bfloat16
+    outs = [torch.empty(b, m, ns, 3 + cf, dtype=out_dtype, device=xyz.device)
+            for ns in nsamples]
     nr = len(radii)
     r2 = (ctypes.c_float * nr)(*(radius_sq(r) for r in radii))
     ns_arr = (ctypes.c_int * nr)(*nsamples)
     out_arr = (ctypes.c_void_p * nr)(*(o.data_ptr() for o in outs))
     P, I = _build.P, _build.I
     fn = _build.function("istnet_ball_query_group",
-                         [P, P, P, I, I, I, I, I, P, P, P, P])
-    err = fn(xyz.data_ptr(), new_xyz.data_ptr(), feats_ptr, b, n, m, cf, nr,
-             ctypes.cast(r2, P), ctypes.cast(ns_arr, P),
-             ctypes.cast(out_arr, P), _build.stream(xyz))
+                         [P, P, P, I, I, I, I, I, I, P, P, P, I, P])
+    err = fn(xyz.data_ptr(), new_xyz.data_ptr(), feats_ptr, int(feats_bf16),
+             b, n, m, cf, nr, ctypes.cast(r2, P), ctypes.cast(ns_arr, P),
+             ctypes.cast(out_arr, P), int(out_dtype == torch.bfloat16),
+             _build.stream(xyz))
     _build.check(err, "istnet_ball_query_group")
     ball_query_group_cuda.launches += 1
     return outs

@@ -14,6 +14,7 @@ from istnet_tpu_torch.ops import ball_query_group as _bqg
 from istnet_tpu_torch.ops import fold_upsample as _fold
 from istnet_tpu_torch.ops import fp_interpolate as _fpi
 from istnet_tpu_torch.ops import fps as _fps
+from istnet_tpu_torch.ops import sa_fused as _sa
 
 # name -> kernel module (SOURCE, REPLACES, plain, the launching wrapper)
 KERNELS = {
@@ -21,12 +22,14 @@ KERNELS = {
     "ball_query_group": _bqg,
     "fp_interpolate": _fpi,
     "fold_upsample": _fold,
+    "sa_fused": _sa,
 }
 _WRAPPERS = {
     "fps": _fps.furthest_point_sample_cuda,
     "ball_query_group": _bqg.ball_query_group_cuda,
     "fp_interpolate": _fpi.fp_interpolate_cuda,
     "fold_upsample": _fold.fold_upsample_conv_cuda,
+    "sa_fused": _sa.sa_msg_fused_cuda,
 }
 
 
@@ -60,11 +63,12 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 def ball_query_group(radii, nsamples, xyz: torch.Tensor,
                      new_xyz: torch.Tensor,
-                     features: torch.Tensor | None = None) -> list:
+                     features: torch.Tensor | None = None,
+                     out_dtype: torch.dtype = torch.float32) -> list:
     if _on_cuda(xyz):
         return _bqg.ball_query_group_cuda(radii, nsamples, xyz, new_xyz,
-                                          features)
-    return _bqg.plain(radii, nsamples, xyz, new_xyz, features)
+                                          features, out_dtype)
+    return _bqg.plain(radii, nsamples, xyz, new_xyz, features, out_dtype)
 
 
 def fp_interpolate(unknown: torch.Tensor, known: torch.Tensor,
@@ -80,3 +84,14 @@ def fold_upsample_conv(x: torch.Tensor, k: torch.Tensor,
     if _on_cuda(x):
         return _fold.fold_upsample_conv_cuda(x, k, b, epilogue)
     return _fold.plain(x, k, b, epilogue)
+
+
+def sa_msg_fused(radii, nsamples, xyz: torch.Tensor, new_xyz: torch.Tensor,
+                 features: torch.Tensor | None, folded) -> list:
+    """The fused eval SA stage at every shape: the JAX package's shape
+    gates (``n % 128``, ``m % tm``) came from Mosaic's tiling, not from the
+    function."""
+    if _on_cuda(xyz):
+        return _sa.sa_msg_fused_cuda(radii, nsamples, xyz, new_xyz, features,
+                                     folded)
+    return _sa.plain(radii, nsamples, xyz, new_xyz, features, folded)

@@ -4,7 +4,8 @@
 Replaces the TPU kernel ``istnet_tpu/ops/three_nn_pallas.py:
 _fp_interp_kernel``. The plain version is ``ops/pointnet2.py::
 fp_interpolate``; the two pick the same neighbours and agree to float32
-summation order.
+summation order. Features may be float32 or bf16; the output has their
+dtype, with float32 weights and sums and one rounding to bf16.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ __all__ = ["fp_interpolate_cuda", "plain"]
 def fp_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
                         feats: torch.Tensor) -> torch.Tensor:
     """``(B, N, 3), (B, M, 3), (B, M, C) -> (B, N, C)``; 3 <= M <= 8192."""
-    unknown, known, feats = _build.cuda_inputs("fp_interpolate", unknown,
-                                               known, feats)
+    unknown, known, feats = _build.cuda_inputs(
+        "fp_interpolate", unknown, known, feats,
+        dtypes=[_build.F32, _build.F32, _build.F32_BF16])
     b, n, _ = unknown.shape
     m = known.shape[1]
     c = feats.shape[-1]
@@ -34,11 +36,13 @@ def fp_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
         raise ValueError(f"fp_interpolate: unknown {tuple(unknown.shape)}, "
                          f"known {tuple(known.shape)}, feats "
                          f"{tuple(feats.shape)}")
-    out = torch.empty(b, n, c, dtype=torch.float32, device=feats.device)
+    out = torch.empty(b, n, c, dtype=feats.dtype, device=feats.device)
     P, I = _build.P, _build.I
-    fn = _build.function("istnet_fp_interpolate", [P, P, P, I, I, I, I, P, P])
+    fn = _build.function("istnet_fp_interpolate",
+                         [P, P, P, I, I, I, I, P, I, P])
     err = fn(unknown.data_ptr(), known.data_ptr(), feats.data_ptr(), b, n, m,
-             c, out.data_ptr(), _build.stream(feats))
+             c, out.data_ptr(), int(feats.dtype == torch.bfloat16),
+             _build.stream(feats))
     _build.check(err, "istnet_fp_interpolate")
     fp_interpolate_cuda.launches += 1
     return out

@@ -121,11 +121,13 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
 
 def ball_query_group(radii, nsamples, xyz: torch.Tensor,
                      new_xyz: torch.Tensor,
-                     features: torch.Tensor | None = None) -> list:
+                     features: torch.Tensor | None = None,
+                     out_dtype: torch.dtype = torch.float32) -> list:
     """Multi-radius ball query + grouping, the plain version of the
     ``ops/ball_query_group.py`` kernel: per radius ``(B, M, ns, 3 + C)`` =
-    ``[xyz[idx] - centroid, features[idx]]``. One distance pass serves all
-    radii."""
+    ``[xyz[idx] - centroid, features[idx]]``, formed in float32 and rounded
+    once to ``out_dtype`` (``istnet_tpu/ops/dispatch.py:92``). One distance
+    pass serves all radii."""
     d2 = pairwise_d2(new_xyz, xyz)
     xyz = xyz.float()
     outs = []
@@ -135,7 +137,7 @@ def ball_query_group(radii, nsamples, xyz: torch.Tensor,
         if features is not None:
             grouped = torch.cat([grouped, group_points(features.float(), idx)],
                                 dim=-1)
-        outs.append(grouped)
+        outs.append(grouped.to(out_dtype))
     return outs
 
 
@@ -177,6 +179,12 @@ def fp_interpolate(unknown: torch.Tensor, known: torch.Tensor,
     """The whole FP gather stage, the plain version of the
     ``ops/fp_interpolate.py`` kernel: 3-NN, inverse-distance weights and
     their weighted sum of ``feats``. ``(B, N, 3), (B, M, 3), (B, M, C) ->
-    (B, N, C)``."""
+    (B, N, C)`` in the dtype of ``feats``.
+
+    bf16 features follow the TPU kernel (``three_nn_pallas.py:134-147``):
+    float32 weights, a float32 sum and one rounding to bf16. (JAX's XLA
+    path rounds the weights to bf16 first; that path is not the contract.)
+    """
     dist, idx = three_nn(unknown, known)
-    return three_interpolate(feats, idx, three_interpolate_weights(dist))
+    out = three_interpolate(feats.float(), idx, three_interpolate_weights(dist))
+    return out.to(feats.dtype)

@@ -1,0 +1,281 @@
+"""The port's bf16 policy against the JAX package's: the SA module, the
+whole ``ISTNet`` eval forward, and the policy's switches.
+
+The JAX side runs its bf16 policy on the CPU with its fused SA path routed
+through the TPU kernel in interpret mode (``monkeypatch.setattr(istnet_tpu.
+ops, "sa_msg_fused", ...)``, the pattern of ``tests/test_sa_fused.py:
+161-168``; stage 1 stays unfused, as the JAX default keeps it). The port
+runs its plain versions. Weights are the port's random init with perturbed
+BN statistics, carried to flax trees, given nonzero SharedMLP dense biases
+there, and brought back by ``state_dict_from_jax`` with ``strict=True``.
+
+Tolerances: the SA module within 2e-2 * max(1, max |JAX|) (the fused
+kernel's contract). The whole forward at B=2, N=256, 48x48 crops,
+``sa_npoints=(128, 128, 128, 64)`` (the smallest at which the JAX fused
+kernel takes every SA stage: N % 128 == 0) within ``MODEL_TOL`` * max |JAX|
+per output: measured 1.5e-3 (rotation), 4.2e-3 (NOCS), 2.7e-3
+(translation) and 1.6e-3 (size) of the largest value, the same order as
+the bf16-vs-f32 drift of either framework, because the two round at
+different places (JAX's CPU graph rounds the FP interpolation weights to
+bf16 and may keep excess precision in fused elementwise chains; the port
+follows the TPU kernels and rounds every op).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import istnet_tpu.ops as jax_ops
+from istnet_tpu.cli import convert_torch_istnet as C
+from istnet_tpu.nn import precision as jax_precision
+from istnet_tpu.ops.sa_fused_pallas import sa_msg_fused_pallas
+from istnet_tpu_torch import ops
+from istnet_tpu_torch.convert import state_dict_from_jax
+from istnet_tpu_torch.entry import build_model, build_serving_model, make_inputs
+from istnet_tpu_torch.models.ist_net import CAM_RADII, ISTNet
+from istnet_tpu_torch.nn import precision
+
+torch.set_num_threads(1)
+
+NPOINTS = (128, 128, 128, 64)
+SA_TOL = 2e-2
+MODEL_TOL = 1e-2
+
+
+def _set_dense_biases(tree, rng, inside=False):
+    """Nonzero SharedMLP dense biases (the port's convs have none)."""
+    for k, v in tree.items():
+        if not isinstance(v, dict):
+            continue
+        if inside and k == "Dense_0":
+            v["bias"] = (rng.randn(*v["bias"].shape) * 0.1).astype(np.float32)
+        else:
+            _set_dense_biases(v, rng, inside or k.startswith("SharedMLP"))
+
+
+@pytest.fixture(scope="module")
+def models():
+    src = build_model(sa_npoints=NPOINTS, seed=5)
+    trees = C.convert_state_dict(
+        {k: v.numpy() for k, v in src.state_dict().items()})
+    _set_dense_biases(trees["params"], np.random.RandomState(5))
+    port = ISTNet(sa_npoints=NPOINTS)
+    port.load_state_dict(state_dict_from_jax(trees), strict=True)
+    return port.eval(), trees
+
+
+def _interpret_fused(calls: list):
+    """A stand-in for ``istnet_tpu.ops.sa_msg_fused`` that runs the TPU
+    kernel in interpret mode and records each call."""
+    def fused(radii, nsamples, xyz, new_xyz, features, folded):
+        if features is None:
+            return None                     # stage 1 stays unfused
+        calls.append(xyz.shape)
+        return sa_msg_fused_pallas(tuple(radii), tuple(nsamples), xyz,
+                                   new_xyz, features, tuple(folded),
+                                   interpret=True)
+    return fused
+
+
+@pytest.fixture
+def bf16(monkeypatch):
+    """Both frameworks under bf16; the JAX fused SA path in interpret mode
+    and counted; both policies restored afterwards."""
+    calls = []
+    monkeypatch.setattr(jax_ops, "sa_msg_fused", _interpret_fused(calls))
+    old_j, old_t = jax_precision.compute_dtype(), precision.compute_dtype()
+    jax_precision.set_compute_dtype(jnp.bfloat16)
+    precision.set_compute_dtype(torch.bfloat16)
+    yield calls
+    jax_precision.set_compute_dtype(old_j)
+    precision.set_compute_dtype(old_t)
+
+
+def _spy_port_fused(monkeypatch):
+    calls = []
+    real = ops.sa_msg_fused
+
+    def spy(*args):
+        calls.append(args[2].shape)
+        return real(*args)
+
+    monkeypatch.setattr(ops, "sa_msg_fused", spy)
+    return calls
+
+
+def test_sa_module_matches_jax_under_bf16(models, bf16, monkeypatch):
+    """SA stage 2 alone (features present): both take the fused path."""
+    from istnet_tpu.nn.pointnet2_msg import PointnetSAModuleMSG
+
+    port, trees = models
+    port_calls = _spy_port_fused(monkeypatch)
+    rng = np.random.RandomState(8)
+    xyz = (rng.randn(2, 128, 3) * 0.05).astype(np.float32)
+    feats = np.maximum(rng.randn(2, 128, 64), 0).astype(np.float32)
+    jsa = PointnetSAModuleMSG(npoint=128, radii=CAM_RADII[1],
+                              nsamples=(16, 32), mlps=((32, 32, 64),) * 2)
+    name = "PointnetSAModuleMSG_1"
+    variables = {"params": trees["params"]["pts_cam_extractor"][name],
+                 "batch_stats": trees["batch_stats"]["pts_cam_extractor"][name]}
+    jxyz, jfeats = jax.jit(lambda v, x, f: jsa.apply(v, x, f, train=False))(
+        variables, jnp.asarray(xyz),
+        jnp.asarray(feats).astype(jnp.bfloat16))
+    with torch.no_grad():
+        txyz, tfeats = port.pts_cam_extractor.SA_modules[1](
+            torch.from_numpy(xyz), torch.from_numpy(feats).bfloat16())
+    assert bf16 and port_calls
+    np.testing.assert_array_equal(txyz.numpy(), np.asarray(jxyz))
+    assert tfeats.dtype == torch.bfloat16 and jfeats.dtype == jnp.bfloat16
+    want = np.asarray(jfeats, np.float32)
+    np.testing.assert_allclose(tfeats.float().numpy(), want, rtol=0,
+                               atol=SA_TOL * max(1.0, np.abs(want).max()))
+
+
+@pytest.fixture(scope="module")
+def forward_bf16(models):
+    """Both whole forwards under bf16 (set and restored here: a module
+    fixture cannot take the function-scoped monkeypatch)."""
+    port, trees = models
+    calls = []
+    from istnet_tpu.models.ist_net import ISTNet as JaxISTNet
+
+    inputs = make_inputs(2, 256, 48, seed=11)
+    real = jax_ops.sa_msg_fused
+    old_j, old_t = jax_precision.compute_dtype(), precision.compute_dtype()
+    jax_ops.sa_msg_fused = _interpret_fused(calls)
+    jax_precision.set_compute_dtype(jnp.bfloat16)
+    precision.set_compute_dtype(torch.bfloat16)
+    try:
+        jm = JaxISTNet(sa_npoints=NPOINTS)
+        want = jax.jit(lambda v, i: jm.apply(v, i, train=False))(
+            trees, {k: jnp.asarray(v.numpy()) for k, v in inputs.items()})
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            got = port(inputs)
+    finally:
+        jax_ops.sa_msg_fused = real
+        jax_precision.set_compute_dtype(old_j)
+        precision.set_compute_dtype(old_t)
+    return got, {k: np.asarray(v) for k, v in want.items()}, calls
+
+
+@pytest.mark.parametrize("key", ["pred_rotation", "pred_translation",
+                                 "pred_size", "pred_qo"])
+def test_bf16_forward_matches_jax(forward_bf16, key):
+    got, want, calls = forward_bf16
+    assert len(calls) == 3                     # JAX fused SA stages 2-4
+    assert got[key].dtype == torch.float32 and want[key].dtype == np.float32
+    assert got[key].shape == want[key].shape
+    np.testing.assert_allclose(got[key].numpy(), want[key], rtol=0,
+                               atol=MODEL_TOL * np.abs(want[key]).max())
+
+
+def test_bf16_cpu_forward_launches_nothing_and_is_orthonormal(forward_bf16):
+    got, _, _ = forward_bf16
+    assert all(v == 0 for v in ops.launch_counts().values())
+    r = got["pred_rotation"]
+    torch.testing.assert_close(r.transpose(1, 2) @ r,
+                               torch.eye(3).expand(2, 3, 3), rtol=0,
+                               atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The policy
+# ---------------------------------------------------------------------------
+
+def test_fused_sa_runs_only_under_bf16_at_eval(models, monkeypatch):
+    """The gate of ``pointnet2_msg.py:98-107``: an f32 policy never reaches
+    the fused kernel; bf16 takes it at SA stages 2-4 and not at stage 1."""
+    port, _ = models
+    calls = _spy_port_fused(monkeypatch)
+    inputs = make_inputs(1, 256, 48, seed=2)
+    old = precision.compute_dtype()
+    try:
+        precision.set_compute_dtype(torch.float32)
+        with torch.no_grad():
+            port(inputs)
+        assert calls == []
+        precision.set_compute_dtype(torch.bfloat16)
+        with torch.no_grad():
+            port(inputs)
+    finally:
+        precision.set_compute_dtype(old)
+    assert [s[1] for s in calls] == [128, 128, 128]
+
+
+def test_bf16_policy_sets_f32_accumulation_and_refuses_other_dtypes():
+    flag = torch.backends.cuda.matmul
+    old_flag, old = flag.allow_bf16_reduced_precision_reduction, \
+        precision.compute_dtype()
+    try:
+        flag.allow_bf16_reduced_precision_reduction = True
+        precision.set_compute_dtype(torch.bfloat16)
+        precision.apply_policy()
+        assert flag.allow_bf16_reduced_precision_reduction is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            precision.set_compute_dtype(torch.float16)
+    finally:
+        flag.allow_bf16_reduced_precision_reduction = old_flag
+        precision.set_compute_dtype(old)
+
+
+def test_build_serving_model_sets_the_policy():
+    old = precision.compute_dtype()
+    try:
+        model = build_serving_model(torch.bfloat16, sa_npoints=(16, 8, 8, 8))
+        assert precision.compute_dtype() == torch.bfloat16
+        with torch.no_grad():
+            out = model(make_inputs(1, 64, 48, seed=1))
+        assert all(v.dtype == torch.float32 for v in out.values())
+    finally:
+        precision.set_compute_dtype(old)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def test_chip_smoke_checks_the_bf16_kernels_at_the_path_shapes(monkeypatch):
+    """The shapes chip_smoke.py holds each bf16 kernel to are the ones the
+    full-width bf16 forward gives it (recorded here on the CPU at B=1)."""
+    import chip_smoke
+    from istnet_tpu_torch.nn import pointnet2_msg, resnet_psp
+
+    seen = {"ball_query_group": [], "fp_interpolate": [], "fold_upsample": [],
+            "sa_fused": []}
+
+    def spy(name, fn, shape):
+        def wrapped(*args, **kwargs):
+            seen[name].append(shape(*args, **kwargs))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(pointnet2_msg.ops, "ball_query_group", spy(
+        "ball_query_group", ops.ball_query_group,
+        lambda r, ns, x, c, f, out_dtype: (x.shape[1], c.shape[1], out_dtype)))
+    monkeypatch.setattr(pointnet2_msg.ops, "fp_interpolate", spy(
+        "fp_interpolate", ops.fp_interpolate,
+        lambda u, k, f: (u.shape[1], k.shape[1], f.shape[-1], f.dtype)))
+    monkeypatch.setattr(resnet_psp.ops, "fold_upsample_conv", spy(
+        "fold_upsample", ops.fold_upsample_conv,
+        lambda x, k, b, e: (*x.shape[1:], k.shape[-1], x.dtype)))
+    monkeypatch.setattr(pointnet2_msg.ops, "sa_msg_fused", spy(
+        "sa_fused", ops.sa_msg_fused,
+        lambda r, ns, x, c, f, folded: (
+            x.shape[1], c.shape[1], f.shape[-1],
+            tuple(w.shape[-1] for w, _ in folded[0]))))
+    old = precision.compute_dtype()
+    try:
+        precision.set_compute_dtype(torch.bfloat16)
+        with torch.no_grad():
+            build_model()(make_inputs(1))
+    finally:
+        precision.set_compute_dtype(old)
+    bf = torch.bfloat16
+    n, m, _ = chip_smoke.BQG_SHAPES[0]
+    assert seen == {
+        "ball_query_group": [(n, m, bf)],
+        "fp_interpolate": [(*s, bf) for s in chip_smoke.FP_SHAPES],
+        "fold_upsample": [(*chip_smoke.FOLD_SHAPE, bf)],
+        "sa_fused": list(chip_smoke.SA_FUSED_SHAPES)}

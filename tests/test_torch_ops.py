@@ -234,7 +234,8 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
                                fold_upsample.plain(x, k, bias, ep),
                                rtol=0, atol=0)
     assert ops.launch_counts() == {"fps": 0, "ball_query_group": 0,
-                                   "fp_interpolate": 0, "fold_upsample": 0}
+                                   "fp_interpolate": 0, "fold_upsample": 0,
+                                   "sa_fused": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_and_other_devices_raise():
@@ -245,7 +246,9 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_other_devices_raise():
                 "ball_query_group": ((0.1,), (4,), xyz, xyz),
                 "fp_interpolate": (xyz, xyz, xyz),
                 "fold_upsample": (torch.zeros(1, 2, 2, 4),
-                                  torch.zeros(3, 3, 4, 4), None)}[name]
+                                  torch.zeros(3, 3, 4, 4), None),
+                "sa_fused": ((0.1,), (4,), xyz, xyz, None,
+                             (((torch.zeros(3, 4), torch.zeros(4)),),))}[name]
         with pytest.raises(ValueError, match="must be on"):
             wrapper(*args)
     with pytest.raises(ValueError, match="no kernel"):
