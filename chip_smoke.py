@@ -23,7 +23,27 @@ then for each compute policy, float32 and bf16 (the deployment precision):
    drift of the bf16 forward from the float32 one on the card);
 6. timings: the B=32 forward and its sections, each kernel against its
    plain version (CUDA events after warmup); under bf16 also the fused SA
-   kernel at stage 1 against the unfused stage 1.
+   kernel at stage 1 against the unfused stage 1;
+
+then the float32 train step (``train/train_state.py``):
+
+7. train kernels: every kernel the train step launches (the forward's FPS,
+   grouping and FP interpolation; the backward's 8: multi-radius ball
+   query, the grouping scatter, 10: 3-NN, the interpolation scatter)
+   against its plain version at B=24 on the step's inputs: a train batch's
+   points through the camera extractor's stages and its NOCS points
+   through the world extractor's, every SA and FP stage with its radii;
+8. train steps: the full-width model at B=24, N=1024, 192x192 takes 3 steps
+   of the default recipe and 2 of the frozen one; each step's loss and
+   gradients are finite, the trained parameters move, every BatchNorm's
+   running statistics take the scheduled EMA, and every kernel launches as
+   often as the step's path asks;
+9. train reference: one step on the card against the same step of the
+   port's CPU path (same weights and batch, dropout off, B=2, small
+   npoints): the loss, the gradients and the updated state;
+10. train timings: median step ms over 10 steps with its forward, backward
+   and update split (CUDA events), peak memory, and each kernel's ms per
+   step against its plain version's, from phase 7's cases.
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.
@@ -66,6 +86,44 @@ F32_PER_FORWARD = {"fps": 4, "ball_query_group": 4, "fp_interpolate": 4,
                    "fold_upsample": 1, "sa_fused": 0}
 BF16_PER_FORWARD = {"fps": 4, "ball_query_group": 1, "fp_interpolate": 4,
                     "fold_upsample": 1, "sa_fused": 3}
+
+# the float32 train step at the training width (config/ist_net_default.yaml)
+TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG = 24, 1024, 192
+TRAIN_SA_NPOINTS = (512, 256, 128, 64)
+TRAIN_STEPS, FROZEN_STEPS, TIMED_STEPS = 3, 2, 10
+SCATTER_TOL = 1e-5      # normwise, as FP_REL_TOL (f32 atomics: sum order)
+# launches of one step: forward FPS / grouping / FP in both extractors
+# (fold and fused SA are eval-only); backward kernel 8 + grouping scatter
+# at SA 2-4 and kernel 10 + interpolation scatter at FP 1-4, of both
+# extractors, or of the camera extractor alone in the frozen recipe
+TRAIN_PER_STEP = {"fps": 8, "ball_query_group": 8, "fp_interpolate": 8,
+                  "fold_upsample": 0, "sa_fused": 0, "ball_query": 6,
+                  "group_scatter": 6, "three_nn": 8, "interp_scatter": 8}
+FROZEN_PER_STEP = {**TRAIN_PER_STEP, "ball_query": 3, "group_scatter": 3,
+                   "three_nn": 4, "interp_scatter": 4}
+# card vs CPU train step (B=2, N=128, 48x48, SA npoints 32/16/8/8, points
+# at std 3 cm so that the camera radii find neighbours at 128 points),
+# bounds ~10x over the measurements on the H100:
+# - loss parts, relative (measured 1.2e-7);
+# - gradients, normwise over all: max|card - cpu| / max|cpu| (9.2e-5);
+# - gradients per tensor, normwise, for every tensor whose largest
+#   gradient is above REF_GRAD_FLOOR of the largest of all (384 of 396
+#   tensors; measured <= 2.6e-2, main_estimator.pose_mlp1.0.weight; the
+#   bound sits ~4x over it). Below the floor sit the biases before
+#   train-mode BNs (gradients of rounding noise, ~1e-10) and two PReLU
+#   slopes (one-element sums that cancel to ~3e-6 of the largest; 0.15);
+# - the updated parameters: Adam's first step moves an element by
+#   lr * g / (|g| + eps), ~lr whatever |g|, so an element whose gradient is
+#   rounding noise takes +-lr on either side; the share of elements whose
+#   updates differ by more than 0.1 lr is bounded (measured 0.187%);
+# - running statistics, normwise per tensor (5.9e-6)
+REF_SA_NPOINTS, REF_BATCH, REF_POINTS, REF_IMG = (32, 16, 8, 8), 2, 128, 48
+REF_LOSS_TOL = 1e-5
+REF_GRAD_TOL = 1e-3
+REF_GRAD_FLOOR = 1e-5
+REF_GRAD_TENSOR_TOL = 0.1
+REF_UPDATE_SHARE = 1e-2
+REF_STATS_TOL = 1e-4
 
 
 @contextlib.contextmanager
@@ -238,13 +296,78 @@ def kernel_cases_bf16(device):
     return cases
 
 
+def train_kernel_cases(device):
+    """The train step's kernels at its shapes: per kernel a list of
+    (argument tuple, launches of that case in one default-recipe step).
+    The inputs follow the path: a train batch's centred points through the
+    camera extractor's SA stages and its NOCS points (``qo``) through the
+    world extractor's, each stage's centres the plain FPS of its input,
+    each FP stage's known points those of the stage below (so part of its
+    unknown ones: distances of exactly 0). Features and cotangents are
+    random float32 of the stage's widths; the scatters take the indices of
+    the plain searches (equal to the kernels', checked in the same phase).
+    SA stage 1 has no backward: its points are data."""
+    import numpy as np
+
+    from istnet_tpu_torch.entry import make_train_batch
+    from istnet_tpu_torch.models.ist_net import CAM_RADII, WORLD_RADII
+    from istnet_tpu_torch.ops import pointnet2 as plain
+
+    rng = np.random.RandomState(2)
+    b = TRAIN_BATCH
+    inputs = make_train_batch(b, TRAIN_POINTS, TRAIN_IMG, seed=2,
+                              device=device)["inputs"]
+    cam = inputs["pts"] - inputs["pts"].mean(dim=1, keepdim=True)
+    cases = {name: [] for name, k in TRAIN_PER_STEP.items() if k}
+    for cloud, radii_list in ((cam, CAM_RADII), (inputs["qo"], WORLD_RADII)):
+        levels = [cloud]
+        for (n, m, cf), radii in zip(BQG_SHAPES, radii_list):
+            xyz = levels[-1]
+            new_xyz = plain.gather_points(xyz,
+                                          plain.furthest_point_sample(xyz, m))
+            levels.append(new_xyz)
+            feats = None if cf == 0 else _f32(rng.randn(b, n, cf), device)
+            cases["fps"].append(((xyz, m), 1))
+            cases["ball_query_group"].append(
+                ((radii, NSAMPLES, xyz, new_xyz, feats), 1))
+            if cf == 0:
+                continue
+            cases["ball_query"].append(((radii, NSAMPLES, xyz, new_xyz), 1))
+            idx = plain.ball_query_multi(radii, NSAMPLES, xyz, new_xyz)
+            grads = [_f32(rng.randn(b, m, ns, 3 + cf), device)
+                     for ns in NSAMPLES]
+            cases["group_scatter"].append(((idx, grads, n), 1))
+        for k, (n, m, c) in enumerate(FP_SHAPES):
+            unknown, known = levels[3 - k], levels[4 - k]
+            cases["fp_interpolate"].append(
+                ((unknown, known, _f32(rng.randn(b, m, c), device)), 1))
+            cases["three_nn"].append(((unknown, known), 1))
+            dist, idx = plain.three_nn(unknown, known)
+            weight = plain.three_interpolate_weights(dist)
+            cases["interp_scatter"].append(
+                ((_f32(rng.randn(b, n, c), device), idx, weight, m), 1))
+    return cases
+
+
 def _label(name: str, args) -> str:
     if name == "fps":
         return f"N={args[0].shape[1]} npoint={args[1]}"
+    if name == "ball_query":
+        radii, _, xyz, new_xyz = args
+        return f"N={xyz.shape[1]} M={new_xyz.shape[1]} radii={radii}"
+    if name == "group_scatter":
+        idx, grads, n = args
+        return (f"N={n} M={idx[0].shape[1]} C={grads[0].shape[-1]} "
+                f"ns={[i.shape[-1] for i in idx]}")
+    if name == "three_nn":
+        return f"N={args[0].shape[1]} M={args[1].shape[1]}"
+    if name == "interp_scatter":
+        grad, _, _, m = args
+        return f"N={grad.shape[1]} M={m} C={grad.shape[-1]}"
     if name in ("ball_query_group", "sa_fused"):
         xyz, new_xyz, feats = args[2:5]
         c = 3 + (0 if feats is None else feats.shape[-1])
-        return f"N={xyz.shape[1]} M={new_xyz.shape[1]} C={c}"
+        return f"N={xyz.shape[1]} M={new_xyz.shape[1]} C={c} radii={args[0]}"
     if name == "fp_interpolate":
         unknown, known, feats = args
         return f"N={unknown.shape[1]} M={known.shape[1]} C={feats.shape[-1]}"
@@ -259,6 +382,28 @@ def _check(name: str, got, want, bf16: bool) -> float:
         if not torch.equal(got, want):
             raise AssertionError(f"fps indices differ at {tuple(got.shape)}")
         return 0.0
+    if name in ("ball_query", "three_nn"):
+        # indices (and 3-NN distances) from the same arithmetic: equal
+        for g, w_ in zip(got, want):
+            if g.dtype != w_.dtype or not torch.equal(g, w_):
+                raise AssertionError(f"{name} differs at {tuple(g.shape)} "
+                                     f"{g.dtype}")
+        return 0.0
+    if name == "group_scatter":
+        err = 0.0
+        for g, w_ in zip(got, want):      # points_bar, centroid_bar
+            d = (g - w_).abs().max().item()
+            if g.dtype != w_.dtype or d > SCATTER_TOL * w_.abs().max().item():
+                raise AssertionError(f"group_scatter max abs err {d} at "
+                                     f"{tuple(g.shape)}")
+            err = max(err, d)
+        return err
+    if name == "interp_scatter":
+        err = (got - want).abs().max().item()
+        if got.dtype != want.dtype or err > SCATTER_TOL * want.abs().max():
+            raise AssertionError(f"interp_scatter max abs err {err} at "
+                                 f"{tuple(got.shape)}")
+        return err
     if name == "ball_query_group":
         for g, w_ in zip(got, want):
             if g.dtype != w_.dtype or not torch.equal(g, w_):
@@ -294,13 +439,13 @@ def _check(name: str, got, want, bf16: bool) -> float:
     return err
 
 
-def phase_kernels(cases, bf16: bool = False) -> dict:
+def phase_kernels(cases, bf16: bool = False, tag: str = "") -> dict:
     """Each case through the kernel and its plain version; per kernel the
     worst error. ``cases``: name -> list of (args, on the path)."""
     import torch
 
     from istnet_tpu_torch.ops import dispatch
-    tag = "bf16 " if bf16 else ""
+    tag = "bf16 " if bf16 else tag
     errs = {}
     for name, case_list in cases.items():
         mod = dispatch.KERNELS[name]
@@ -433,6 +578,14 @@ def phase_timings(model, cases, device, tag: str = "") -> dict:
         for label, fn in sections.items():
             print(f"[timings] {tag}section {label}: "
                   f"{cuda_ms(fn, iters=10):.3f} ms")
+    return time_kernels(cases, tag)
+
+
+def time_kernels(cases, tag: str = "") -> dict:
+    """Every kernel case against its plain version; per kernel the ms of
+    one forward (or train step): each case's time times its count there
+    (``on_path``: True/False for once/never, or a launch count)."""
+    from istnet_tpu_torch.ops import dispatch
     times = {}
     for name, case_list in cases.items():
         mod = dispatch.KERNELS[name]
@@ -441,12 +594,12 @@ def phase_timings(model, cases, device, tag: str = "") -> dict:
         for args, on_path in case_list:
             km = cuda_ms(lambda: kern(*args), iters=20)
             pm = cuda_ms(lambda: mod.plain(*args), iters=3, warmup=1)
-            note = "" if on_path else " (off the path)"
+            note = ("" if on_path is True else " (off the path)"
+                    if not on_path else f" (x{on_path} a step)")
             print(f"[timings] {tag}{name} {_label(name, args)}: kernel "
                   f"{km:.4f} ms, plain {pm:.4f} ms{note}")
-            if on_path:
-                k_ms += km
-                p_ms += pm
+            k_ms += km * on_path
+            p_ms += pm * on_path
         times[name] = (k_ms, p_ms)
     return times
 
@@ -492,6 +645,269 @@ def phase_stage1_choice(model, device) -> None:
           f"{f_ms:.4f} ms; outputs agree to {err:.3g} (max {scale:.3g})")
 
 
+def _dropout_off(model) -> None:
+    from istnet_tpu_torch.nn.layers import Dropout2d
+    for m in model.modules():
+        if isinstance(m, Dropout2d):
+            m.eval()
+
+
+def _check_step(model, opt, cfg, step, parts, before, stats, tag) -> None:
+    """One train step's invariants: finite loss parts and gradients, the
+    trained parameters moved (each with a gradient above rounding), the
+    frozen ones did not, and every BatchNorm that ran took the scheduled
+    EMA of its published batch statistics."""
+    import torch
+
+    from istnet_tpu_torch.train.train_state import batch_norms
+    bad = [k for k, v in parts.items() if not torch.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{tag}: loss parts {bad} not finite")
+    trained = {id(p) for g in opt.param_groups for p in g["params"]}
+    no_grad, still = [], []
+    for name, p in model.named_parameters():
+        moved = not torch.equal(p.detach(), before[name])
+        if id(p) not in trained:
+            if moved:
+                raise AssertionError(f"{tag}: frozen {name} moved")
+            continue
+        if p.grad is None:
+            no_grad.append(name)
+            continue
+        if not torch.isfinite(p.grad).all():
+            raise AssertionError(f"{tag}: gradient of {name} not finite")
+        if not moved and p.grad.abs().max() > 1e-6:
+            still.append(name)
+    # the trunk's classifier is loaded and never run (resnet_psp.py)
+    no_grad = [n for n in no_grad if ".feats.fc." not in n]
+    if no_grad or still:
+        raise AssertionError(f"{tag}: no gradient {no_grad}; did not move "
+                             f"{still}")
+    m = cfg.momentum(step)
+    ran = 0
+    for bn, (mean, var, count) in zip(batch_norms(model), stats):
+        if bn.batch_mean is None:
+            if not torch.equal(bn.running_mean, mean):
+                raise AssertionError(f"{tag}: an idle BatchNorm moved")
+            continue
+        ran += 1
+        for got, old, batch in ((bn.running_mean, mean, bn.batch_mean),
+                                (bn.running_var, var, bn.batch_var)):
+            want = (1.0 - m) * old + m * batch
+            if torch.equal(got, old) or not torch.allclose(got, want,
+                                                           rtol=1e-6,
+                                                           atol=1e-7):
+                raise AssertionError(f"{tag}: BatchNorm statistics off the "
+                                     f"EMA with momentum {m}")
+        if int(bn.num_batches_tracked) != int(count) + 1:
+            raise AssertionError(f"{tag}: num_batches_tracked")
+    print(f"[train] {tag}: loss {float(parts['total']):.6g} "
+          f"({', '.join(f'{k} {float(v):.4g}' for k, v in parts.items())}); "
+          f"{len(trained)} trained tensors finite and moved; {ran} "
+          f"BatchNorms took the EMA (momentum {m:.4g})")
+
+
+def phase_train_steps(device) -> dict:
+    """3 default-recipe and 2 frozen-recipe steps at the training width;
+    returns the launches of all 5 steps."""
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.entry import build_train_model, make_train_batch
+    from istnet_tpu_torch.train.train_state import (
+        TrainConfig,
+        batch_norms,
+        make_optimizer,
+        train_step,
+    )
+    totals: dict = {}
+    torch.cuda.reset_peak_memory_stats(device)
+    for cfg, steps, per_step in ((TrainConfig(), TRAIN_STEPS, TRAIN_PER_STEP),
+                                 (TrainConfig.frozen(), FROZEN_STEPS,
+                                  FROZEN_PER_STEP)):
+        recipe = "frozen" if cfg.freeze_world_enhancer else "default"
+        model = build_train_model(device, seed=0,
+                                  freeze_world_enhancer=cfg.freeze_world_enhancer,
+                                  sa_npoints=TRAIN_SA_NPOINTS)
+        opt = make_optimizer(model, cfg)
+        gen = torch.Generator(device=device).manual_seed(0)
+        for step in range(steps):
+            batch = make_train_batch(TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG,
+                                     seed=10 + step, device=device)
+            before = {k: p.detach().clone()
+                      for k, p in model.named_parameters()}
+            stats = [(bn.running_mean.clone(), bn.running_var.clone(),
+                      bn.num_batches_tracked.clone())
+                     for bn in batch_norms(model)]
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            parts = train_step(model, opt, batch, step, gen, cfg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            tag = f"{recipe} step {step} (B={TRAIN_BATCH}, {seconds:.3f} s)"
+            if counts != per_step:
+                raise AssertionError(f"{tag}: launches {counts}, expected "
+                                     f"{per_step}")
+            _check_step(model, opt, cfg, step, parts, before, stats, tag)
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+        print(f"[train] {recipe}: launches per step as expected {per_step}")
+        del model, opt
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    print(f"[train] peak memory allocated {peak:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    return totals
+
+
+def phase_train_reference(device) -> None:
+    """One default-recipe step on the card against the same step of the
+    port's CPU path: same weights, batch and LR, dropout off."""
+    import torch
+
+    from istnet_tpu_torch.entry import build_train_model, make_train_batch
+    from istnet_tpu_torch.train.train_state import (
+        TrainConfig,
+        make_optimizer,
+        train_step,
+    )
+    cfg = TrainConfig()
+    batch = make_train_batch(REF_BATCH, REF_POINTS, REF_IMG, seed=5)
+    batch["inputs"]["pts"] = batch["inputs"]["pts"] * 0.3
+    init = None
+    runs = []
+    for dev in ("cpu", device):
+        model = build_train_model(dev, seed=3, sa_npoints=REF_SA_NPOINTS)
+        if init is None:
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(init)
+        _dropout_off(model)
+        b = {part: {k: v.to(dev) for k, v in d.items()}
+             for part, d in batch.items()}
+        parts = train_step(model, make_optimizer(model, cfg), b, 0,
+                           torch.Generator(device=dev), cfg)
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+        runs.append(({k: float(v) for k, v in parts.items()}, grads, state))
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = runs
+    loss_err = max(abs(l_gpu[k] - v) / max(abs(v), 1e-12)
+                   for k, v in l_cpu.items())
+    if set(g_cpu) != set(g_gpu):
+        raise AssertionError("card and CPU differ in which parameters have "
+                             "a gradient")
+    g_err = {k: (g_gpu[k] - g).abs().max().item()
+             / max(g.abs().max().item(), 1e-30) for k, g in g_cpu.items()}
+    g_top = max(g.abs().max().item() for g in g_cpu.values())
+    g_all = (max((g_gpu[k] - g).abs().max().item() for k, g in g_cpu.items())
+             / g_top)
+    above = {k: e for k, e in g_err.items()
+             if g_cpu[k].abs().max().item() > REF_GRAD_FLOOR * g_top}
+    lr = cfg.lr(0)
+    u_off, s_err = [], {}
+    for k, v in s_cpu.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        d = (s_gpu[k] - v).abs()
+        if "running" in k:
+            s_err[k] = d.max().item() / max(v.abs().max().item(), 1e-30)
+        else:
+            u_off.append(d.flatten() / lr)
+    u_off = torch.cat(u_off)
+    u_max, u_share = u_off.max().item(), (u_off > 0.1).float().mean().item()
+
+    def worst(errs, n=5):
+        return ", ".join(
+            f"{k} {e:.3g} (max|g| {g_cpu[k].abs().max().item():.3g}, "
+            f"{g_cpu[k].numel()} el.)"
+            for k, e in sorted(errs.items(), key=lambda kv: -kv[1])[:n])
+
+    print(f"[train-reference] B={REF_BATCH} N={REF_POINTS} {REF_IMG}x"
+          f"{REF_IMG}: loss parts rel err {loss_err:.3g}; gradients "
+          f"normwise over all {g_all:.3g} (max|g| {g_top:.3g}), per tensor "
+          f"median {sorted(g_err.values())[len(g_err) // 2]:.3g}, worst "
+          + worst(g_err))
+    print(f"[train-reference]   {len(above)} of {len(g_err)} tensors with "
+          f"max|g| > {REF_GRAD_FLOOR:g} of the largest: worst "
+          f"{worst(above, 3)}")
+    worst_s = max(s_err, key=s_err.get)
+    worst_t = max(above, key=above.get)
+    print(f"[train-reference] updated parameters: {u_share:.3%} of "
+          f"{u_off.numel()} elements off by more than 0.1 lr, the most "
+          f"{u_max:.3g} lr; running statistics normwise <= "
+          f"{s_err[worst_s]:.3g} ({worst_s})")
+    if (loss_err > REF_LOSS_TOL or g_all > REF_GRAD_TOL
+            or above[worst_t] > REF_GRAD_TENSOR_TOL
+            or u_share > REF_UPDATE_SHARE
+            or s_err[worst_s] > REF_STATS_TOL):
+        raise AssertionError(
+            f"card vs CPU train step: loss {loss_err} (tol {REF_LOSS_TOL}), "
+            f"gradients {g_all} ({REF_GRAD_TOL}), per tensor {above[worst_t]} "
+            f"at {worst_t} ({REF_GRAD_TENSOR_TOL}), updates off {u_share} "
+            f"({REF_UPDATE_SHARE}), statistics {s_err[worst_s]} "
+            f"({REF_STATS_TOL})")
+
+
+def phase_train_timings(device) -> None:
+    """Median ms of ``train_step`` at the training width, then the split of
+    the same step into its parts (``start_step``, then timed by CUDA
+    events: ``step_loss``, the backward, ``finish_step``)."""
+    import statistics
+
+    import torch
+
+    from istnet_tpu_torch.entry import build_train_model, make_train_batch
+    from istnet_tpu_torch.train.train_state import (
+        TrainConfig,
+        finish_step,
+        make_optimizer,
+        start_step,
+        step_loss,
+        train_step,
+    )
+    cfg = TrainConfig()
+    model = build_train_model(device, seed=1, sa_npoints=TRAIN_SA_NPOINTS)
+    opt = make_optimizer(model, cfg)
+    gen = torch.Generator(device=device).manual_seed(1)
+    batch = make_train_batch(TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG, seed=30,
+                             device=device)
+    for step in range(2):
+        train_step(model, opt, batch, step, gen, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    step_ms = []
+    for step in range(2, 2 + TIMED_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        train_step(model, opt, batch, step, gen, cfg)
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+    split = []
+    for step in range(2 + TIMED_STEPS, 2 + 2 * TIMED_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        start_step(model, opt, step, cfg)
+        ev[0].record()
+        total, _ = step_loss(model, batch, gen, cfg)
+        ev[1].record()
+        total.backward()
+        ev[2].record()
+        finish_step(model, opt, step, cfg)
+        ev[3].record()
+        torch.cuda.synchronize()
+        split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    med = statistics.median(step_ms)
+    fwd, bwd, upd = (statistics.median(s[i] for s in split) for i in range(3))
+    print(f"[timings] train B={TRAIN_BATCH} f32 step: median {med:.3f} ms "
+          f"over {TIMED_STEPS} (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}; {TRAIN_BATCH / med * 1e3:.1f} samples/s); "
+          f"split medians: forward + loss {fwd:.3f} ms, backward {bwd:.3f} "
+          f"ms, Adam + BN EMA {upd:.3f} ms; peak memory {peak:.2f} GiB")
+
+
 def main() -> int:
     device_info = phase_device()
     import torch
@@ -535,6 +951,15 @@ def main() -> int:
     errs16["fps"], times16["fps"] = errs["fps"], times["fps"]
     record("bfloat16", "float32", errs16, counts16, times16, ["fps"])
     record("bfloat16", "bfloat16", errs16, counts16, times16, list(cases16))
+
+    with policy(torch.float32):
+        train_cases = train_kernel_cases(device)
+        errs_t = phase_kernels(train_cases, tag="train ")
+        counts_t = phase_train_steps(device)
+        phase_train_reference(device)
+        phase_train_timings(device)
+        times_t = time_kernels(train_cases, "train ")
+    record("train", "float32", errs_t, counts_t, times_t, list(train_cases))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device_info}))

@@ -14,10 +14,9 @@
 // evaluations (1024 x 512 at the last stage) and the output N x C floats;
 // both are small, so latency and occupancy matter more than peak rates.
 // Design: one warp per unknown point with the known set in shared memory
-// (M <= 512: 6 KB of coordinates plus 2 KB of norms). Each lane keeps a
-// sorted top-3 of the indices it scans (lane, lane + 32, ...: ascending, so
-// strict < keeps the lowest index first among equals); three warp-wide
-// (d2, index) argmin rounds merge the lanes' lists. The TPU kernel's
+// (M <= 512: 6 KB of coordinates plus 2 KB of norms). The search is
+// three_nn.cuh's, which the FP backward's 3-NN kernel (three_nn.cu) shares,
+// so forward and backward pick the same neighbours. The TPU kernel's
 // (TN, M) one-hot interpolation matrix and its MXU contraction are replaced
 // by three direct row loads per channel, lanes along channels.
 //
@@ -28,20 +27,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
+#include "three_nn.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;  // unknown points per block
-
-__device__ __forceinline__ float norm2(float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-}
-
-// (d, i) before (bd, bi) in (d2, index) order.
-__device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
-  return d < bd || (d == bd && i < bi);
-}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -56,62 +46,15 @@ fp_interp_kernel(const float* __restrict__ unknown, const float* __restrict__ kn
   extern __shared__ float s_known[];  // 3 * m coordinates, then m norms
   float* s_norm = s_known + 3 * m;
   const int b = blockIdx.y;
-  const float* kn = known + static_cast<size_t>(b) * m * 3;
-  for (int t = threadIdx.x; t < 3 * m; t += blockDim.x) s_known[t] = kn[t];
-  __syncthreads();
-  for (int t = threadIdx.x; t < m; t += blockDim.x) {
-    s_norm[t] = norm2(s_known[3 * t], s_known[3 * t + 1], s_known[3 * t + 2]);
-  }
-  __syncthreads();
+  istnet::load_known(known + static_cast<size_t>(b) * m * 3, m, s_known, s_norm);
 
   const int lane = threadIdx.x & 31;
   const int u = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (u >= n) return;  // whole warp leaves together; no barrier follows
   const float* up = unknown + (static_cast<size_t>(b) * n + u) * 3;
-  const float ux = up[0], uy = up[1], uz = up[2];
-  const float an = norm2(ux, uy, uz);
-
-  float d[3] = {INFINITY, INFINITY, INFINITY};
-  int id[3] = {INT_MAX, INT_MAX, INT_MAX};
-  for (int k = lane; k < m; k += 32) {
-    const float ab = __fadd_rn(__fadd_rn(__fmul_rn(ux, s_known[3 * k]),
-                                         __fmul_rn(uy, s_known[3 * k + 1])),
-                               __fmul_rn(uz, s_known[3 * k + 2]));
-    const float d2 = fmaxf(__fsub_rn(__fadd_rn(an, s_norm[k]), __fmul_rn(2.f, ab)), 0.f);
-    if (d2 < d[0]) {
-      d[2] = d[1]; id[2] = id[1];
-      d[1] = d[0]; id[1] = id[0];
-      d[0] = d2; id[0] = k;
-    } else if (d2 < d[1]) {
-      d[2] = d[1]; id[2] = id[1];
-      d[1] = d2; id[1] = k;
-    } else if (d2 < d[2]) {
-      d[2] = d2; id[2] = k;
-    }
-  }
-
-  // merge: three rounds of a warp-wide argmin over the lanes' list heads
   float sel_d[3];
   int sel_i[3];
-  int head = 0;
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    float bd = head == 0 ? d[0] : (head == 1 ? d[1] : (head == 2 ? d[2] : INFINITY));
-    int bi = head == 0 ? id[0] : (head == 1 ? id[1] : (head == 2 ? id[2] : INT_MAX));
-    const int mine = bi;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (before(od, oi, bd, bi)) {
-        bd = od;
-        bi = oi;
-      }
-    }
-    sel_d[r] = bd;
-    sel_i[r] = bi;
-    if (mine == bi) ++head;  // indices are unique to their lane
-  }
+  istnet::warp_three_nn(s_known, s_norm, m, up[0], up[1], up[2], sel_d, sel_i);
 
   float w[3];
 #pragma unroll

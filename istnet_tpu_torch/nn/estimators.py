@@ -1,4 +1,4 @@
-"""Pose heads and the implicit space transformation (eval forward).
+"""Pose heads and the implicit space transformation.
 
 Counterpart of ``istnet_tpu/nn/estimators.py``. Per-point MLPs are 1x1
 ``Conv1d`` chains applied on the last axis of ``(B, N, C)`` data (one matmul
@@ -95,8 +95,7 @@ class ImplicitTransformation(nn.Module):
 
 
 class LightEstimator(PoseHeads):
-    """Train-only auxiliary camera-space pose head. Defined so that a full
-    state dict loads strictly; the train branch will run it."""
+    """Train-only auxiliary camera-space pose head (``cam_enhancer``)."""
 
     def __init__(self):
         super().__init__()

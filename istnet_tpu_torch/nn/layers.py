@@ -1,4 +1,4 @@
-"""Primitive layers: convs on channel-last data, eval BatchNorm, PReLU,
+"""Primitive layers: convs on channel-last data, BatchNorm, PReLU,
 Dropout2d, resizes and the fold-upsample conv's plain version.
 
 Counterpart of ``istnet_tpu/nn/layers.py``. Activations are channel-last
@@ -47,12 +47,27 @@ def pointwise(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over the last axis with the running statistics:
-    ``(x - mean) * rsqrt(var + eps) * weight + bias`` in that order, as
-    ``istnet_tpu/nn/layers.py::BatchNorm`` evaluates it, in float32 with
-    one rounding back to the input's dtype (``layers.py:219-220``). The
-    parameter and buffer names are those of ``torch.nn.BatchNorm2d``. Batch
-    statistics (training) come with the train branch."""
+    """BatchNorm over the last axis, ``istnet_tpu/nn/layers.py::BatchNorm``:
+    ``(x - mean) * rsqrt(var + eps) * weight + bias`` in that order, in
+    float32 (float64 for float64 inputs) with one rounding back to the
+    input's dtype (``layers.py:219-220``). The parameter and buffer names
+    are those of ``torch.nn.BatchNorm2d``.
+
+    Eval uses the running statistics. Train mode normalises with the batch
+    mean and the biased batch variance over every axis but the last, and
+    publishes this step's batch mean and unbiased variance as
+    ``batch_mean`` / ``batch_var`` (JAX's ``bn_batch`` collection). The
+    forward never touches ``running_*``: the train step applies the EMA
+    with the scheduled momentum after the update
+    (``train/train_state.py::update_bn_stats``).
+
+    The batch variance is two-pass (``torch.var_mean``), not JAX's float32
+    one-pass ``E[x^2] - E[x]^2`` (``layers.py:205-207``). The one-pass form
+    cancels when |mean| >> std, and it would cancel differently here: the
+    weight bridge folds the SharedMLP's dense bias into ``running_mean``
+    (``convert.py``), so the port's activations are JAX's shifted by that
+    bias. Two-pass is accurate at any shift; the port then differs from JAX
+    by JAX's own one-pass error, which the float32 tests bound."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -63,12 +78,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        self.batch_mean: torch.Tensor | None = None
+        self.batch_var: torch.Tensor | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xs = x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
         if self.training:
-            raise NotImplementedError("BatchNorm batch statistics (training) "
-                                      "are not ported yet; call .eval()")
-        y = (x.float() - self.running_mean) * self.invstd()
+            axes = tuple(range(x.dim() - 1))
+            var, mean = torch.var_mean(xs, dim=axes, correction=0)
+            count = x.numel() // x.shape[-1]
+            self.batch_mean = mean.detach()
+            self.batch_var = var.detach() * (count / max(count - 1, 1))
+            y = (xs - mean) * torch.rsqrt(var + self.eps)
+        else:
+            y = (xs - self.running_mean) * self.invstd()
         return (y * self.weight + self.bias).to(x.dtype)
 
     def invstd(self) -> torch.Tensor:
@@ -89,17 +112,33 @@ class PReLU(nn.Module):
 
 
 class Dropout2d(nn.Module):
-    """Channel dropout; the identity at eval, which is all this slice runs."""
+    """Channel dropout for NHWC maps (torch ``nn.Dropout2d``;
+    ``istnet_tpu/nn/layers.py:232-257``): in training, ``x`` times a
+    ``(B, 1, 1, C)`` keep mask scaled by ``1 / keep``, zeros at ``rate >=
+    1``; the identity at eval. The mask is drawn from the
+    ``torch.Generator`` the caller passes (the train step's), never from
+    the global one; JAX draws other bits, and dropout has no golden-value
+    contract, so the parity tests turn it off."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("Dropout2d in training is not ported "
-                                      "yet; call .eval()")
-        return x
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError("Dropout2d in training draws its mask from an "
+                             "explicit torch.Generator; pass one")
+        keep = 1.0 - self.rate
+        b, c = x.shape[0], x.shape[-1]
+        draw = torch.rand((b, 1, 1, c), generator=generator,
+                          device=generator.device)
+        mask = (draw < keep).to(device=x.device, dtype=x.dtype)
+        return x * (mask * (1.0 / keep))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""PointNet++ multi-scale-grouping feature extractor (eval forward).
+"""PointNet++ multi-scale-grouping feature extractor.
 
 Counterpart of ``istnet_tpu/nn/pointnet2_msg.py``: 4 set-abstraction stages
 (FPS -> gather -> two-radius ball query + group -> SharedMLP -> max over
@@ -9,7 +9,11 @@ versions on the CPU; the SharedMLPs are cuBLAS matmuls. Under the bf16
 policy at eval, SA stages with features (2-4) run whole as the fused SA
 kernel (``ops.sa_msg_fused``) with the BN folded into the weights; stage
 1 stays unfused, as the JAX default keeps it (``istnet_tpu/ops/dispatch.py:
-155``).
+155``). In training every stage runs unfused, its SharedMLPs with BN batch
+statistics, and the grouping and the interpolation carry gradients (their
+backward kernels on the card); the slot max is ``amax``, which splits the
+gradient evenly among tied slots as JAX's max does (pad slots repeat the
+first hit, so ties are exact).
 
 Submodule names follow the reference torch keys (``SA_modules.{i}.mlps.{j}
 .layer{k}.conv`` / ``.normlayer.bn``, ``FP_modules.{i}.mlp.layer{k}``), so

@@ -10,6 +10,12 @@ Two policies, as in the JAX package:
   and NOCS head outputs stay float32. Only this policy's eval forward takes
   the fused SA kernel (``nn/pointnet2_msg.py``).
 
+float64 is accepted too, for the parity tests on the CPU only, as the JAX
+package's tests run its float64 policy under x64: the model is then
+``.double()``, values stay float64, and what JAX keeps float32 under that
+policy stays float32 here too (the geometry's decisions, the pose and NOCS
+head outputs and the losses). No kernel takes float64.
+
 The policy is read when a module runs (JAX reads it when it traces), so set
 it before a forward and restore it after, as the tests do:
 
@@ -29,13 +35,14 @@ from __future__ import annotations
 import torch
 
 _COMPUTE_DTYPE = torch.float32
-_POLICIES = (torch.float32, torch.bfloat16)
+_POLICIES = (torch.float32, torch.bfloat16, torch.float64)
 
 
 def set_compute_dtype(dtype: torch.dtype) -> None:
     global _COMPUTE_DTYPE
     if dtype not in _POLICIES:
-        raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
+        raise ValueError(f"compute dtype {dtype}: float32 or bfloat16 "
+                         f"(float64 in the CPU parity tests)")
     _COMPUTE_DTYPE = dtype
 
 

@@ -1,4 +1,4 @@
-"""RGB encoder: stride-8 ResNet-18 + PSP + upsampling decoder (eval forward).
+"""RGB encoder: stride-8 ResNet-18 + PSP + upsampling decoder.
 
 Counterpart of ``istnet_tpu/nn/resnet_psp.py``, with the same faithfulness
 notes: the reference's ResNet passes dilation 2/4 to layers 3/4 but never
@@ -10,9 +10,14 @@ Maps are NHWC, in the compute dtype (``nn/precision.py``). Dense convs run
 through cuDNN, 1x1 convs and the folded upsample of ``up_1`` through
 cuBLAS; ``up_2``'s fold-upsample conv with its BN + PReLU epilogue is the
 hand-written kernel of ``ops/fold_upsample.py`` on CUDA tensors, in either
-dtype. Submodule names follow the reference torch keys
-(``model.feats.*``, ``model.psp.stages.{i}.1``, ``model.up_{1,2,3}.conv.{1,
-2,3}``, ``model.final.{0,1,2}``).
+dtype, at eval only: its epilogue bakes in the running statistics, so in
+training ``up_2`` takes the plain fold and then its own BN (batch
+statistics) and PReLU, as JAX does (``fold_kernel=not train``,
+``istnet_tpu/nn/resnet_psp.py:222-229``). Training also runs the three
+``Dropout2d`` applications (``drop_1`` once, ``drop_2`` twice, each with a
+mask of its own from the caller's generator). Submodule names follow the
+reference torch keys (``model.feats.*``, ``model.psp.stages.{i}.1``,
+``model.up_{1,2,3}.conv.{1,2,3}``, ``model.final.{0,1,2}``).
 """
 
 from __future__ import annotations
@@ -112,8 +117,8 @@ class PSPModule(nn.Module):
 class PSPUpsample(nn.Module):
     """x2 bilinear (align_corners=True) + 3x3 conv + BN + PReLU, evaluated
     as the fold (``conv3x3_on_doubled``). ``fold_kernel=True`` sends the
-    fold with its BN + PReLU epilogue through ``ops.fold_upsample_conv``:
-    the CUDA kernel on the card, the same plain fold on the CPU."""
+    fold with its eval BN + PReLU epilogue through ``ops.fold_upsample_conv``
+    at eval: the CUDA kernel on the card, the same plain fold on the CPU."""
 
     def __init__(self, cin: int, cout: int, fold_kernel: bool = False):
         super().__init__()
@@ -134,7 +139,7 @@ class PSPUpsample(nn.Module):
         conv = self.conv[1]
         k = cast(conv.weight.permute(2, 3, 1, 0))             # HWIO
         x, b = cast(x), cast(conv.bias)
-        if self.fold_kernel:
+        if self.fold_kernel and not self.training:
             return ops.fold_upsample_conv(x, k, b, self.epilogue())
         return self.conv[3](self.conv[2](conv3x3_on_doubled(x, k, b)))
 
@@ -156,26 +161,30 @@ class _PSPNet(nn.Module):
 class ModifiedResnet(nn.Module):
     """RGB encoder, (B, H, W, 3) -> per-pixel 128-d features at H x W.
 
-    ``forward`` computes the dense map; ``sparse_points`` evaluates the last
-    upsample stage and the final head only at the chosen pixels, exactly
-    equal in eval mode (``istnet_tpu/nn/resnet_psp.py:288-394``)."""
+    ``forward`` computes the dense map (training, and the dense eval head);
+    ``sparse_points`` evaluates the last upsample stage and the final head
+    only at the chosen pixels, exactly equal in eval mode
+    (``istnet_tpu/nn/resnet_psp.py:288-394``). ``generator`` draws the
+    dropout masks in training."""
 
     def __init__(self):
         super().__init__()
         self.model = _PSPNet()
 
-    def _features96(self, x: torch.Tensor) -> torch.Tensor:
+    def _features96(self, x: torch.Tensor,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
         m = self.model
-        p = m.drop_1(m.psp(m.feats(x)))
-        p = m.drop_2(m.up_1(p))
-        return m.drop_2(m.up_2(p))
+        p = m.drop_1(m.psp(m.feats(x)), generator)
+        p = m.drop_2(m.up_1(p), generator)
+        return m.drop_2(m.up_2(p), generator)
 
     def _final(self, v: torch.Tensor) -> torch.Tensor:
         f = self.model.final
         return f[2](f[1](pointwise(v, f[0])))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self._features96(x)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h = self._features96(x, generator)
         h = resize_bilinear_align_corners(h, 2 * h.shape[1], 2 * h.shape[2])
         up3 = self.model.up_3.conv
         h = up3[3](up3[2](conv2d_nhwc(h, up3[1])))

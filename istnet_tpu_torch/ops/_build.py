@@ -135,6 +135,17 @@ I = ctypes.c_int
 F32 = (torch.float32,)
 BF16 = (torch.bfloat16,)
 F32_BF16 = (torch.float32, torch.bfloat16)
+I32 = (torch.int32,)
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; anything else raises:
+    there is neither a kernel nor a plain version for it."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
 def cuda_inputs(name: str, *tensors, dtypes=None):
@@ -142,7 +153,10 @@ def cuda_inputs(name: str, *tensors, dtypes=None):
     contiguous. Each must be a CUDA tensor on one device, of a dtype its
     kernel takes: ``dtypes`` gives one tuple of accepted dtypes per tensor
     (float32 for all when omitted). With grad mode on none may require
-    grad: the kernels are forward-only."""
+    grad: a wrapper launches its kernel and records no graph. The
+    gradients are the autograd Functions' (``ball_query_group.py``,
+    ``fp_interpolate.py``), whose forward and backward call the
+    wrappers."""
     dev = tensors[0].device
     dtypes = dtypes or [F32] * len(tensors)
     out = []
@@ -154,8 +168,9 @@ def cuda_inputs(name: str, *tensors, dtypes=None):
             raise TypeError(f"{name}: {' or '.join(map(str, ok))} inputs "
                             f"only, got {t.dtype}")
         if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(f"{name}: the CUDA kernel is forward-only; "
-                               f"run under torch.no_grad()")
+            raise RuntimeError(f"{name}: the kernel wrapper is forward-only; "
+                               f"call it under torch.no_grad() or use the "
+                               f"differentiable op of istnet_tpu_torch.ops")
         out.append(t.contiguous())
     return out
 

@@ -1,9 +1,17 @@
-"""Kernel 2: multi-radius ball query + grouping (``csrc/ball_query_group.cu``).
+"""Kernel 2: multi-radius ball query + grouping (``csrc/ball_query_group.cu``),
+and its gradient.
 
 Replaces the TPU kernel ``istnet_tpu/ops/ball_query_pallas.py:
 _bq_group_kernel_t``. The plain version is ``ops/pointnet2.py::
 ball_query_group``; the two give equal grouped values (the same radius
 decisions, then a copy and one subtraction).
+
+``BallQueryGroup`` is the op with its gradient, the counterpart of the
+``jax.custom_vjp`` ``ball_query_pallas.ball_query_group``: the forward is
+kernel 2; the backward (``_bqg_bwd``) recomputes the neighbour lists with
+kernel 8 (``ops/ball_query.py``) and scatters the cotangents with
+``ops/group_scatter.py``. It takes CUDA tensors only, as ``ops/dispatch.py``
+routes them; on the CPU the plain grouping carries plain autograd.
 """
 
 from __future__ import annotations
@@ -13,15 +21,16 @@ import ctypes
 import torch
 
 from istnet_tpu_torch.ops import _build
+from istnet_tpu_torch.ops import ball_query as _bq
+from istnet_tpu_torch.ops import group_scatter as _gs
+from istnet_tpu_torch.ops.ball_query import MAX_NSAMPLE, MAX_RADII
 from istnet_tpu_torch.ops.pointnet2 import ball_query_group as plain
 from istnet_tpu_torch.ops.pointnet2 import radius_sq
 
 SOURCE = "istnet_tpu_torch/csrc/ball_query_group.cu"
 REPLACES = "istnet_tpu/ops/ball_query_pallas.py:445"
-MAX_RADII = 2
-MAX_NSAMPLE = 64
 
-__all__ = ["ball_query_group_cuda", "plain"]
+__all__ = ["BallQueryGroup", "ball_query_group_cuda", "plain"]
 
 
 def ball_query_group_cuda(radii, nsamples, xyz: torch.Tensor,
@@ -81,3 +90,35 @@ def ball_query_group_cuda(radii, nsamples, xyz: torch.Tensor,
 
 
 ball_query_group_cuda.launches = 0
+
+
+class BallQueryGroup(torch.autograd.Function):
+    """``apply(radii, nsamples, out_dtype, xyz, new_xyz, features)`` -> a
+    tuple of per-radius grouped tensors, differentiable in ``xyz``,
+    ``new_xyz`` and ``features``. The backward takes float32 cotangents
+    (the float32 policy); the decisions carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, radii, nsamples, out_dtype, xyz, new_xyz, features):
+        outs = ball_query_group_cuda(radii, nsamples, xyz, new_xyz, features,
+                                     out_dtype)
+        ctx.radii, ctx.nsamples = tuple(radii), tuple(nsamples)
+        ctx.feat_dtype = None if features is None else features.dtype
+        ctx.save_for_backward(xyz, new_xyz)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xyz, new_xyz = ctx.saved_tensors
+        if any(g.dtype != torch.float32 for g in grads):
+            raise TypeError("ball_query_group backward: float32 cotangents "
+                            "only (the float32 train policy)")
+        idx_list = _bq.ball_query_multi_cuda(ctx.radii, ctx.nsamples,
+                                             xyz.detach(), new_xyz.detach())
+        points_bar, centroid_bar = _gs.group_scatter_cuda(idx_list, grads,
+                                                          xyz.shape[1])
+        xyz_bar = points_bar[..., :3].to(xyz.dtype)
+        feat_bar = (None if ctx.feat_dtype is None
+                    else points_bar[..., 3:].to(ctx.feat_dtype))
+        return (None, None, None, xyz_bar, centroid_bar.to(new_xyz.dtype),
+                feat_bar)

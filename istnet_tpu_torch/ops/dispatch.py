@@ -4,17 +4,28 @@ tensor to the kernel's plain PyTorch version, anything else raises.
 Counterpart of ``istnet_tpu/ops/dispatch.py``. The choice is made on the
 device of the tensor alone; a kernel that fails to build or launch raises,
 it never falls back to the plain version.
+
+Gradients: on the card the grouping and the FP interpolation run as
+autograd Functions whose backward passes are kernels too (8 and the
+grouping scatter, 10 and the interpolation scatter); on the CPU the plain
+versions are differentiable as they stand. FPS gives indices, so it
+detaches its input.
 """
 
 from __future__ import annotations
 
 import torch
 
+from istnet_tpu_torch.ops import ball_query as _bq
 from istnet_tpu_torch.ops import ball_query_group as _bqg
 from istnet_tpu_torch.ops import fold_upsample as _fold
 from istnet_tpu_torch.ops import fp_interpolate as _fpi
 from istnet_tpu_torch.ops import fps as _fps
+from istnet_tpu_torch.ops import group_scatter as _gs
+from istnet_tpu_torch.ops import interp_scatter as _is
 from istnet_tpu_torch.ops import sa_fused as _sa
+from istnet_tpu_torch.ops import three_nn as _tnn
+from istnet_tpu_torch.ops._build import on_cuda as _on_cuda
 
 # name -> kernel module (SOURCE, REPLACES, plain, the launching wrapper)
 KERNELS = {
@@ -23,6 +34,10 @@ KERNELS = {
     "fp_interpolate": _fpi,
     "fold_upsample": _fold,
     "sa_fused": _sa,
+    "ball_query": _bq,
+    "group_scatter": _gs,
+    "three_nn": _tnn,
+    "interp_scatter": _is,
 }
 _WRAPPERS = {
     "fps": _fps.furthest_point_sample_cuda,
@@ -30,15 +45,11 @@ _WRAPPERS = {
     "fp_interpolate": _fpi.fp_interpolate_cuda,
     "fold_upsample": _fold.fold_upsample_conv_cuda,
     "sa_fused": _sa.sa_msg_fused_cuda,
+    "ball_query": _bq.ball_query_multi_cuda,
+    "group_scatter": _gs.group_scatter_cuda,
+    "three_nn": _tnn.three_nn_cuda,
+    "interp_scatter": _is.interp_scatter_cuda,
 }
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.is_cuda:
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
 def launch_counts() -> dict[str, int]:
@@ -56,6 +67,7 @@ def wrapper(name: str):
 
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    xyz = xyz.detach()
     if _on_cuda(xyz):
         return _fps.furthest_point_sample_cuda(xyz, npoint)
     return _fps.plain(xyz, npoint)
@@ -66,15 +78,15 @@ def ball_query_group(radii, nsamples, xyz: torch.Tensor,
                      features: torch.Tensor | None = None,
                      out_dtype: torch.dtype = torch.float32) -> list:
     if _on_cuda(xyz):
-        return _bqg.ball_query_group_cuda(radii, nsamples, xyz, new_xyz,
-                                          features, out_dtype)
+        return list(_bqg.BallQueryGroup.apply(radii, nsamples, out_dtype, xyz,
+                                              new_xyz, features))
     return _bqg.plain(radii, nsamples, xyz, new_xyz, features, out_dtype)
 
 
 def fp_interpolate(unknown: torch.Tensor, known: torch.Tensor,
                    feats: torch.Tensor) -> torch.Tensor:
     if _on_cuda(feats):
-        return _fpi.fp_interpolate_cuda(unknown, known, feats)
+        return _fpi.FPInterpolate.apply(unknown, known, feats)
     return _fpi.plain(unknown, known, feats)
 
 

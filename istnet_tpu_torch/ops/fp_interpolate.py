@@ -1,11 +1,21 @@
 """Kernel 3: fused 3-NN + inverse-distance interpolation
-(``csrc/fp_interpolate.cu``), one PointNet++ FP gather stage.
+(``csrc/fp_interpolate.cu``), one PointNet++ FP gather stage, and its
+gradient.
 
 Replaces the TPU kernel ``istnet_tpu/ops/three_nn_pallas.py:
 _fp_interp_kernel``. The plain version is ``ops/pointnet2.py::
 fp_interpolate``; the two pick the same neighbours and agree to float32
 summation order. Features may be float32 or bf16; the output has their
 dtype, with float32 weights and sums and one rounding to bf16.
+
+``FPInterpolate`` is the op with its gradient, the counterpart of the
+``jax.custom_vjp`` ``three_nn_pallas.fp_interpolate``: the forward is kernel
+3; the backward (``_fpi_bwd``) reruns the 3-NN search with kernel 10
+(``ops/three_nn.py``), forms the weights in plain torch and scatters
+``weight * cotangent`` with ``ops/interp_scatter.py``. Only the features
+get a gradient: the reference's ThreeNN is not differentiable. It takes
+CUDA tensors only, as ``ops/dispatch.py`` routes them; on the CPU the plain
+interpolation carries plain autograd.
 """
 
 from __future__ import annotations
@@ -13,13 +23,16 @@ from __future__ import annotations
 import torch
 
 from istnet_tpu_torch.ops import _build
+from istnet_tpu_torch.ops import interp_scatter as _scatter
+from istnet_tpu_torch.ops import three_nn as _tnn
 from istnet_tpu_torch.ops.pointnet2 import fp_interpolate as plain
+from istnet_tpu_torch.ops.pointnet2 import three_interpolate_weights
+from istnet_tpu_torch.ops.three_nn import MAX_KNOWN
 
 SOURCE = "istnet_tpu_torch/csrc/fp_interpolate.cu"
 REPLACES = "istnet_tpu/ops/three_nn_pallas.py:93"
-MAX_KNOWN = 8192
 
-__all__ = ["fp_interpolate_cuda", "plain"]
+__all__ = ["FPInterpolate", "fp_interpolate_cuda", "plain"]
 
 
 def fp_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
@@ -49,3 +62,26 @@ def fp_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
 
 
 fp_interpolate_cuda.launches = 0
+
+
+class FPInterpolate(torch.autograd.Function):
+    """``apply(unknown, known, feats)`` -> ``(B, N, C)``, differentiable in
+    ``feats`` (float32 cotangents, the float32 policy); ``unknown`` and
+    ``known`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, unknown, known, feats):
+        ctx.m, ctx.feat_dtype = known.shape[1], feats.dtype
+        ctx.save_for_backward(unknown, known)
+        return fp_interpolate_cuda(unknown, known, feats)
+
+    @staticmethod
+    def backward(ctx, grad):
+        unknown, known = ctx.saved_tensors
+        if grad.dtype != torch.float32:
+            raise TypeError("fp_interpolate backward: float32 cotangents "
+                            "only (the float32 train policy)")
+        dist, idx = _tnn.three_nn_cuda(unknown.detach(), known.detach())
+        weight = three_interpolate_weights(dist)
+        feats_bar = _scatter.interp_scatter_cuda(grad, idx, weight, ctx.m)
+        return None, None, feats_bar.to(ctx.feat_dtype)

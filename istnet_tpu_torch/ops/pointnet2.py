@@ -16,6 +16,19 @@ that the CUDA kernels, which evaluate the same order without FMA
 contraction, decide every radius test and 3-NN tie exactly as these do.
 All indices are int32, as in the JAX package. Layout is channel-last:
 points ``(B, N, 3)``, features ``(B, N, C)``.
+
+Gradients. No index or distance carries one: FPS, the radius tests and
+the 3-NN choice are decisions, and ``fp_interpolate`` detaches its
+distances (``istnet_tpu/ops/dispatch.py:68-69``), so points that are their
+own SA centre (distance exactly 0) give no NaN through ``sqrt``. Values do:
+``ball_query_group`` is differentiable in the points, centroids and
+features, ``fp_interpolate`` in the features only. ``group_scatter`` and
+``three_interpolate_grad`` are the transposes the backward kernels compute.
+
+float64 inputs (the parity tests' policy) keep float64 values, as JAX's
+x64 path does; the decisions stay float32, except that ``three_nn``
+decides on direct float64 differences there, as JAX's does
+(``istnet_tpu/ops/pointnet2.py:201-207``).
 """
 
 from __future__ import annotations
@@ -119,6 +132,20 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     return _first_hits(hit, nsample)
 
 
+def ball_query_multi(radii, nsamples, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> list:
+    """Per radius ``(B, M, ns)`` int32 neighbour indices over one distance
+    pass, the plain version of the ``ops/ball_query.py`` kernel
+    (``istnet_tpu/ops/ball_query_pallas.py:ball_query_multi_pallas``)."""
+    d2 = pairwise_d2(new_xyz.detach(), xyz.detach())
+    return [_first_hits(d2 < radius_sq(r), ns) for r, ns in zip(radii, nsamples)]
+
+
+def _value_dtype(t: torch.Tensor) -> torch.dtype:
+    """float64 stays float64; every other dtype computes in float32."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
 def ball_query_group(radii, nsamples, xyz: torch.Tensor,
                      new_xyz: torch.Tensor,
                      features: torch.Tensor | None = None,
@@ -128,17 +155,42 @@ def ball_query_group(radii, nsamples, xyz: torch.Tensor,
     ``[xyz[idx] - centroid, features[idx]]``, formed in float32 and rounded
     once to ``out_dtype`` (``istnet_tpu/ops/dispatch.py:92``). One distance
     pass serves all radii."""
-    d2 = pairwise_d2(new_xyz, xyz)
-    xyz = xyz.float()
+    dt = _value_dtype(xyz)
+    xyz, new_xyz = xyz.to(dt), new_xyz.to(dt)
     outs = []
-    for radius, ns in zip(radii, nsamples):
-        idx = _first_hits(d2 < radius_sq(radius), ns)
-        grouped = group_points(xyz, idx) - new_xyz.float()[:, :, None, :]
+    for idx in ball_query_multi(radii, nsamples, xyz, new_xyz):
+        grouped = group_points(xyz, idx) - new_xyz[:, :, None, :]
         if features is not None:
-            grouped = torch.cat([grouped, group_points(features.float(), idx)],
+            grouped = torch.cat([grouped, group_points(features.to(dt), idx)],
                                 dim=-1)
         outs.append(grouped.to(out_dtype))
     return outs
+
+
+def group_points_grad(grad: torch.Tensor, idx: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """The transpose of ``group_points``: ``(B, M, S, C), (B, M, S) ->
+    (B, N, C)``, each slot's row added into the point it holds."""
+    b, m, s, c = grad.shape
+    out = torch.zeros(b, n, c, dtype=grad.dtype, device=grad.device)
+    index = idx.long().reshape(b, m * s, 1).expand(-1, -1, c)
+    return out.scatter_add_(1, index, grad.reshape(b, m * s, c))
+
+
+def group_scatter(idx_list, grads, n: int):
+    """The backward of ``ball_query_group`` past its indices, the plain
+    version of the ``ops/group_scatter.py`` kernel
+    (``istnet_tpu/ops/ball_query_pallas.py:_bqg_bwd``). Per radius ``idx``
+    ``(B, M, ns)`` and the cotangent ``(B, M, ns, 3 + C)`` of its grouped
+    tensor -> ``points_bar (B, N, 3 + C)``, every slot's cotangent added
+    into its point (pad slots into the first hit, rows without a hit into
+    point 0; ``[..., :3]`` is the points' gradient, ``[..., 3:]`` the
+    features'), and ``centroid_bar (B, M, 3)``, minus the slot sum of the
+    relative-xyz cotangents, all in float32."""
+    points_bar = sum(group_points_grad(g.float(), idx, n)
+                     for idx, g in zip(idx_list, grads))
+    centroid_bar = -sum(g[..., :3].float().sum(dim=2) for g in grads)
+    return points_bar, centroid_bar
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +199,12 @@ def ball_query_group(radii, nsamples, xyz: torch.Tensor,
 
 def three_nn(unknown: torch.Tensor, known: torch.Tensor):
     """``(B, N, 3), (B, M, 3) -> dist (B, N, 3), idx (B, N, 3) int32``: the
-    3 nearest known points by (d2, index), ``dist = sqrt(d2)``."""
-    d2 = pairwise_d2(unknown, known)                      # (B, N, M)
+    3 nearest known points by (d2, index), ``dist = sqrt(d2)``. The plain
+    version of the ``ops/three_nn.py`` kernel."""
+    if unknown.dtype == torch.float64:
+        d2 = ((unknown[:, :, None, :] - known[:, None, :, :]) ** 2).sum(-1)
+    else:
+        d2 = pairwise_d2(unknown, known)                  # (B, N, M)
     m = d2.shape[-1]
     lane = torch.arange(m, device=d2.device)
     dists, idxs = [], []
@@ -174,6 +230,20 @@ def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
     return torch.sum(group_points(points, idx) * weight[..., None], dim=2)
 
 
+def three_interpolate_grad(grad: torch.Tensor, idx: torch.Tensor,
+                           weight: torch.Tensor, m: int) -> torch.Tensor:
+    """The transpose of ``three_interpolate`` in its points, the plain
+    version of the ``ops/interp_scatter.py`` kernel: ``(B, N, C), (B, N,
+    3), (B, N, 3) -> (B, M, C)``, ``weight[n, k] * grad[n]`` added into
+    known point ``idx[n, k]``, in float32
+    (``istnet_tpu/ops/three_nn_pallas.py:_fpi_bwd``)."""
+    b, n, c = grad.shape
+    rows = (weight.float()[..., None] * grad.float()[:, :, None, :])
+    out = torch.zeros(b, m, c, dtype=torch.float32, device=grad.device)
+    index = idx.long().reshape(b, n * 3, 1).expand(-1, -1, c)
+    return out.scatter_add_(1, index, rows.reshape(b, n * 3, c))
+
+
 def fp_interpolate(unknown: torch.Tensor, known: torch.Tensor,
                    feats: torch.Tensor) -> torch.Tensor:
     """The whole FP gather stage, the plain version of the
@@ -184,7 +254,9 @@ def fp_interpolate(unknown: torch.Tensor, known: torch.Tensor,
     bf16 features follow the TPU kernel (``three_nn_pallas.py:134-147``):
     float32 weights, a float32 sum and one rounding to bf16. (JAX's XLA
     path rounds the weights to bf16 first; that path is not the contract.)
+    The gradient flows into ``feats`` only.
     """
-    dist, idx = three_nn(unknown, known)
-    out = three_interpolate(feats.float(), idx, three_interpolate_weights(dist))
+    dist, idx = three_nn(unknown.detach(), known.detach())
+    out = three_interpolate(feats.to(_value_dtype(feats)), idx,
+                            three_interpolate_weights(dist))
     return out.to(feats.dtype)

@@ -99,11 +99,25 @@ def test_dense_eval_head_equals_sparse(slice_outputs):
         torch.testing.assert_close(dense[k], got[k], rtol=0, atol=1e-5)
 
 
-def test_train_mode_is_refused(slice_outputs):
+def test_train_mode_runs_the_train_branch(slice_outputs):
+    """Train mode runs the train branch (its parity with JAX is in
+    ``tests/test_torch_train_model.py``): the eval outputs plus the world
+    features and the auxiliary poses, finite, with a graph to train."""
     _, _, port, inputs = slice_outputs
-    with pytest.raises(NotImplementedError, match="train branch"):
-        port.train()(inputs)
-    port.eval()
+    train_inputs = {**inputs, "qo": inputs["pts"] * 0.5}
+    try:
+        out = port.train()(train_inputs, torch.Generator().manual_seed(0))
+    finally:
+        port.eval()
+    assert set(out) == {
+        "pred_qo", "pred_rotation", "pred_translation", "pred_size",
+        "pts_w_local", "pts_w_local_gt", "pred_rotation_aux_cam",
+        "pred_translation_aux_cam", "pred_size_aux_cam",
+        "pred_rotation_aux_world", "pred_translation_aux_world",
+        "pred_size_aux_world"}
+    for k, v in out.items():
+        assert torch.isfinite(v).all() and v.requires_grad, k
+    assert out["pts_w_local_gt"].shape == (2, 128, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -166,8 +180,16 @@ def test_importing_the_port_leaves_jax_out():
         "import sys\n"
         "import istnet_tpu_torch, istnet_tpu_torch.ops, istnet_tpu_torch.entry\n"
         "import istnet_tpu_torch.convert, istnet_tpu_torch.models.ist_net\n"
+        "import istnet_tpu_torch.models.losses, istnet_tpu_torch.train\n"
+        "import istnet_tpu_torch.train.schedules\n"
+        "import istnet_tpu_torch.train.train_state as ts\n"
+        "import istnet_tpu_torch.ops.ball_query, istnet_tpu_torch.ops.three_nn\n"
+        "import istnet_tpu_torch.ops.group_scatter\n"
+        "import istnet_tpu_torch.ops.interp_scatter\n"
         "import chip_smoke\n"
         "m = istnet_tpu_torch.entry.build_model(sa_npoints=(16, 8, 8, 8))\n"
+        "t = istnet_tpu_torch.entry.build_train_model(sa_npoints=(16, 8, 8, 8))\n"
+        "ts.make_optimizer(t, ts.TrainConfig())\n"
         "bad = [n for n in ('jax', 'flax', 'istnet_tpu') if n in sys.modules]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
@@ -207,3 +229,76 @@ def test_chip_smoke_checks_the_kernels_at_the_path_shapes(monkeypatch):
                     "ball_query_group": list(chip_smoke.BQG_SHAPES),
                     "fp_interpolate": list(chip_smoke.FP_SHAPES),
                     "fold_upsample": [chip_smoke.FOLD_SHAPE]}
+
+
+def test_chip_smoke_checks_the_train_kernels_at_the_path_shapes(monkeypatch):
+    """The train cases of chip_smoke.py are the calls of the full-width
+    train step, one case a call: FPS, grouping and FP interpolation at
+    every stage of the camera and the world extractor, with their radii;
+    the backward kernels at the groupings and interpolations whose inputs
+    carry a gradient (recorded on the CPU at B=1, forward only)."""
+    import chip_smoke
+    from istnet_tpu_torch.entry import build_train_model, make_train_batch
+    from istnet_tpu_torch.nn import pointnet2_msg
+
+    seen = {name: [] for name in ("fps", "ball_query_group", "fp_interpolate",
+                                  "ball_query", "three_nn")}
+    real_fps, real_group, real_fp = (ops.furthest_point_sample,
+                                     ops.ball_query_group, ops.fp_interpolate)
+
+    def fps(xyz, npoint):
+        seen["fps"].append((xyz.shape[1], npoint))
+        return real_fps(xyz, npoint)
+
+    def group(radii, nsamples, xyz, new_xyz, features=None, **kw):
+        call = (xyz.shape[1], new_xyz.shape[1],
+                0 if features is None else features.shape[-1], tuple(radii),
+                tuple(nsamples))
+        seen["ball_query_group"].append(call)
+        if features is not None and features.requires_grad:
+            seen["ball_query"].append(call)
+        return real_group(radii, nsamples, xyz, new_xyz, features, **kw)
+
+    def fp(unknown, known, feats):
+        call = (unknown.shape[1], known.shape[1], feats.shape[-1])
+        seen["fp_interpolate"].append(call)
+        if feats.requires_grad:
+            seen["three_nn"].append(call)
+        return real_fp(unknown, known, feats)
+
+    monkeypatch.setattr(pointnet2_msg.ops, "furthest_point_sample", fps)
+    monkeypatch.setattr(pointnet2_msg.ops, "ball_query_group", group)
+    monkeypatch.setattr(pointnet2_msg.ops, "fp_interpolate", fp)
+    model = build_train_model(seed=0, sa_npoints=chip_smoke.TRAIN_SA_NPOINTS)
+    model(make_train_batch(1, chip_smoke.TRAIN_POINTS, chip_smoke.TRAIN_IMG)[
+        "inputs"], torch.Generator().manual_seed(0))
+
+    cases = chip_smoke.train_kernel_cases("cpu")
+    per_step = chip_smoke.TRAIN_PER_STEP
+    assert set(cases) == {k for k, v in per_step.items() if v}
+    for name, case_list in cases.items():
+        assert sum(k for _, k in case_list) == per_step[name], name
+    n_of = {"fps": lambda a: (a[0].shape[1], a[1]),
+            "ball_query_group": lambda a: (
+                a[2].shape[1], a[3].shape[1],
+                0 if a[4] is None else a[4].shape[-1], a[0], a[1]),
+            "ball_query": lambda a: a[2:4],
+            "group_scatter": lambda a: (a[2], a[0][0].shape[1],
+                                        a[1][0].shape[-1] - 3),
+            "fp_interpolate": lambda a: (a[0].shape[1], a[1].shape[1],
+                                         a[2].shape[-1]),
+            "three_nn": lambda a: (a[0].shape[1], a[1].shape[1]),
+            "interp_scatter": lambda a: (a[0].shape[1], a[3], a[0].shape[-1])}
+    got = {name: [n_of[name](a) for a, _ in case_list]
+           for name, case_list in cases.items()}
+    assert got["fps"] == seen["fps"]
+    assert got["ball_query_group"] == seen["ball_query_group"]
+    assert got["fp_interpolate"] == seen["fp_interpolate"]
+    assert [(x.shape[1], c.shape[1]) for x, c in got["ball_query"]] == [
+        call[:2] for call in seen["ball_query"]]
+    assert [a[0] for a, _ in cases["ball_query"]] == [
+        call[3] for call in seen["ball_query"]]
+    assert got["group_scatter"] == [call[:3] for call in seen["ball_query"]]
+    assert got["three_nn"] == [call[:2] for call in seen["three_nn"]]
+    assert got["interp_scatter"] == seen["three_nn"]
+    assert len(seen["ball_query"]) == 6 and len(seen["three_nn"]) == 8

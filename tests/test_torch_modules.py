@@ -229,10 +229,13 @@ def test_batchnorm_prelu_dropout_match_flax():
                                 jnp.asarray(x)), atol=0)
     t = torch.from_numpy(x)
     assert layers.Dropout2d(0.5).eval()(t) is t          # identity at eval
-    with pytest.raises(NotImplementedError):
+    # training: dropout draws only from an explicit generator, and BN
+    # normalises with batch statistics (tests/test_torch_train_ops.py)
+    with pytest.raises(ValueError, match="Generator"):
         layers.Dropout2d(0.5).train()(t)
-    with pytest.raises(NotImplementedError):
-        bn.train()(torch.from_numpy(x))
+    with torch.no_grad():
+        bn.train()(t)
+    torch.testing.assert_close(bn.batch_mean, t.mean(dim=(0, 1)))
 
 
 def test_ortho6d_matches_jax():

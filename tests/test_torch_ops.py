@@ -233,9 +233,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     torch.testing.assert_close(ops.fold_upsample_conv(x, k, bias, ep),
                                fold_upsample.plain(x, k, bias, ep),
                                rtol=0, atol=0)
-    assert ops.launch_counts() == {"fps": 0, "ball_query_group": 0,
-                                   "fp_interpolate": 0, "fold_upsample": 0,
-                                   "sa_fused": 0}
+    assert ops.launch_counts() == {name: 0 for name in dispatch.KERNELS}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_and_other_devices_raise():
@@ -248,7 +246,13 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_other_devices_raise():
                 "fold_upsample": (torch.zeros(1, 2, 2, 4),
                                   torch.zeros(3, 3, 4, 4), None),
                 "sa_fused": ((0.1,), (4,), xyz, xyz, None,
-                             (((torch.zeros(3, 4), torch.zeros(4)),),))}[name]
+                             (((torch.zeros(3, 4), torch.zeros(4)),),)),
+                "ball_query": ((0.1,), (4,), xyz, xyz),
+                "group_scatter": ([torch.zeros(1, 16, 4, dtype=torch.int32)],
+                                  [torch.zeros(1, 16, 4, 3)], 16),
+                "three_nn": (xyz, xyz),
+                "interp_scatter": (xyz, torch.zeros(1, 16, 3, dtype=torch.int32),
+                                   xyz, 16)}[name]
         with pytest.raises(ValueError, match="must be on"):
             wrapper(*args)
     with pytest.raises(ValueError, match="no kernel"):
