@@ -45,7 +45,30 @@ then the float32 train step (``train/train_state.py``):
    and update split (CUDA events), peak memory, and each kernel's ms per
    step against its plain version's, from phase 7's cases.
 
-The last two lines are a JSON object of per-kernel results and
+then the serving path from a raw frame (``eval/test_loop.py``), under the
+float32 policy and, for 11-13, the bf16 one too:
+
+11. depth fill: kernel 11 against its plain version at (1, 480, 640) and
+   (24, 480, 640) on frames with 35% holes, an empty top band and empty
+   columns, at a width that is no multiple of 128, at 5 x 5 and on an
+   all-zero frame: without the bilateral filter equal, with it within
+   1e-5 m; and against the port's OpenCV pipeline on one frame within 1 mm;
+   then every kernel of the path at the serving bucket of 8;
+12. device forward: one synthetic 480 x 640 frame of 6 instances (one with
+   a 9-pixel mask) padded to a bucket of 8 through depth fill, crop, sample,
+   back-projection, resize and the full-width eval forward; outputs finite,
+   ``R^T R = I``, ``n_valid`` of the padded rows 0, launch counts of the one
+   call; per-frame times of its parts;
+13. device reference: the same path at a small model on the card against
+   the CPU, same uniforms: ``choose`` and ``n_valid`` equal, points within
+   1e-5 m, poses within the eval phases' bounds;
+14. loops: ``test_func_device`` and ``test_func_device_batched`` (batch 32,
+   kb 16) over a synthetic tree of 24 frames in a temporary directory write
+   one pkl per frame with the same kept instances, ``nocs_map.evaluate``
+   gives finite APs; frames/s of each loop and the card's busy share.
+
+Before the last line come the card's name and power limit (first line) and a
+JSON object of per-kernel results with each kernel's bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -98,7 +121,8 @@ SCATTER_TOL = 1e-5      # normwise, as FP_REL_TOL (f32 atomics: sum order)
 # extractors, or of the camera extractor alone in the frozen recipe
 TRAIN_PER_STEP = {"fps": 8, "ball_query_group": 8, "fp_interpolate": 8,
                   "fold_upsample": 0, "sa_fused": 0, "ball_query": 6,
-                  "group_scatter": 6, "three_nn": 8, "interp_scatter": 8}
+                  "group_scatter": 6, "three_nn": 8, "interp_scatter": 8,
+                  "depth_fill": 0}
 FROZEN_PER_STEP = {**TRAIN_PER_STEP, "ball_query": 3, "group_scatter": 3,
                    "three_nn": 4, "interp_scatter": 4}
 # card vs CPU train step (B=2, N=128, 48x48, SA npoints 32/16/8/8, points
@@ -124,6 +148,22 @@ REF_GRAD_FLOOR = 1e-5
 REF_GRAD_TENSOR_TOL = 0.1
 REF_UPDATE_SHARE = 1e-2
 REF_STATS_TOL = 1e-4
+
+# the serving path from a raw frame: one 480 x 640 frame of 6 instances in a
+# bucket of 8; the loops over a synthetic tree
+FRAME_SHAPE = (480, 640)
+SERVE_INSTANCES, SERVE_BUCKET = 6, 8
+LOOP_FRAMES, LOOP_INSTANCES, LOOP_BATCH, LOOP_KB = 24, 3, 32, 16
+# kernel 11 against its plain version, metres: every max, min and median is
+# exact; the bilateral's expf, 13 products and divide round on their own
+# (measured 1.4e-6 on the H100)
+DEPTH_FILL_TOL = 1e-5
+DEPTH_FILL_CV2_TOL_MM = 1.0
+# card vs CPU device preprocessing, metres (the fills differ by the above)
+REF_PTS_TOL = 1e-5
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory bytes/s, float32 FLOP/s outside the tensor cores, bf16 FLOP/s
+HBM_BPS, F32_OPS, BF16_OPS = 3.35e12, 67e12, 989e12
 
 
 @contextlib.contextmanager
@@ -208,33 +248,34 @@ def _epilogue(rng, cout):
                      np.full(cout, 0.25)])
 
 
-def kernel_cases(device):
+def kernel_cases(device, batch: int = 0):
     """Per kernel, the argument tuples of its path shapes, on ``device``."""
     import numpy as np
     import torch
 
     from istnet_tpu_torch.models.ist_net import CAM_RADII
 
+    batch = batch or BATCH
     rng = np.random.RandomState(0)
     cases = {"fps": [], "ball_query_group": [], "fp_interpolate": [],
              "fold_upsample": []}
     for n, npoint in FPS_SHAPES:
-        cases["fps"].append((_points(rng, BATCH, n).to(device), npoint))
+        cases["fps"].append((_points(rng, batch, n).to(device), npoint))
     for (n, m, cf), radii in zip(BQG_SHAPES, CAM_RADII):
-        xyz = _points(rng, BATCH, n).to(device)
+        xyz = _points(rng, batch, n).to(device)
         feats = (None if cf == 0 else torch.from_numpy(
-            rng.randn(BATCH, n, cf).astype("float32")).to(device))
+            rng.randn(batch, n, cf).astype("float32")).to(device))
         cases["ball_query_group"].append(
             (radii, NSAMPLES, xyz, xyz[:, :m].contiguous(), feats))
     for n, m, c in FP_SHAPES:
-        unknown = _points(rng, BATCH, n).to(device)
-        feats = torch.from_numpy(rng.randn(BATCH, m, c).astype("float32"))
+        unknown = _points(rng, batch, n).to(device)
+        feats = torch.from_numpy(rng.randn(batch, m, c).astype("float32"))
         cases["fp_interpolate"].append(
             (unknown, unknown[:, :m].contiguous(), feats.to(device)))
     h, w, cin, cout = FOLD_SHAPE
     ep = _epilogue(rng, cout)
     cases["fold_upsample"].append(
-        (_f32(rng.randn(BATCH, h, w, cin), device),
+        (_f32(rng.randn(batch, h, w, cin), device),
          _f32(rng.uniform(-1, 1, (3, 3, cin, cout)) / np.sqrt(9 * cin), device),
          _f32(rng.randn(cout) * 0.1, device), _f32(ep, device)))
     return cases
@@ -252,7 +293,7 @@ def _folded(rng, c_in, channels, device):
     return tuple(layers)
 
 
-def kernel_cases_bf16(device):
+def kernel_cases_bf16(device, batch: int = 0):
     """The bf16 path's cases: per kernel a list of (argument tuple, on the
     path). The fused SA case at stage 1's shape is #7's function; the model
     keeps stage 1 unfused, so it is checked and timed but off the path."""
@@ -261,23 +302,24 @@ def kernel_cases_bf16(device):
 
     from istnet_tpu_torch.models.ist_net import CAM_RADII
 
+    batch = batch or BATCH
     bf16 = torch.bfloat16
     rng = np.random.RandomState(1)
     cases = {"ball_query_group": [], "fp_interpolate": [],
              "fold_upsample": [], "sa_fused": []}
     n, m, _ = BQG_SHAPES[0]
-    xyz = _points(rng, BATCH, n).to(device)
+    xyz = _points(rng, batch, n).to(device)
     cases["ball_query_group"].append(
         ((CAM_RADII[0], NSAMPLES, xyz, xyz[:, :m].contiguous(), None, bf16),
          True))
     for n, m, c in FP_SHAPES:
-        unknown = _points(rng, BATCH, n).to(device)
-        feats = _f32(rng.randn(BATCH, m, c), device).to(bf16)
+        unknown = _points(rng, batch, n).to(device)
+        feats = _f32(rng.randn(batch, m, c), device).to(bf16)
         cases["fp_interpolate"].append(
             ((unknown, unknown[:, :m].contiguous(), feats), True))
     h, w, cin, cout = FOLD_SHAPE
     cases["fold_upsample"].append(
-        ((_f32(rng.randn(BATCH, h, w, cin), device).to(bf16),
+        ((_f32(rng.randn(batch, h, w, cin), device).to(bf16),
           _f32(rng.uniform(-1, 1, (3, 3, cin, cout)) / np.sqrt(9 * cin),
                device).to(bf16),
           _f32(rng.randn(cout) * 0.1, device).to(bf16),
@@ -286,9 +328,9 @@ def kernel_cases_bf16(device):
               for i, shape in enumerate(SA_FUSED_SHAPES)]
     for (n, m, cf, mlp), radii, on_path in stages + [(SA1_SHAPE, CAM_RADII[0],
                                                       False)]:
-        xyz = _points(rng, BATCH, n).to(device)
+        xyz = _points(rng, batch, n).to(device)
         feats = (None if cf == 0 else
-                 torch.relu(_f32(rng.randn(BATCH, n, cf), device)).to(bf16))
+                 torch.relu(_f32(rng.randn(batch, n, cf), device)).to(bf16))
         folded = tuple(_folded(rng, 3 + cf, mlp, device) for _ in NSAMPLES)
         cases["sa_fused"].append(
             ((radii, NSAMPLES, xyz, xyz[:, :m].contiguous(), feats, folded),
@@ -371,6 +413,9 @@ def _label(name: str, args) -> str:
     if name == "fp_interpolate":
         unknown, known, feats = args
         return f"N={unknown.shape[1]} M={known.shape[1]} C={feats.shape[-1]}"
+    if name == "depth_fill":
+        empty = (args[0] <= 0.01).float().mean().item()
+        return f"depth={tuple(args[0].shape)} empty={empty:.1%}"
     return f"x={tuple(args[0].shape)} cout={args[1].shape[-1]}"
 
 
@@ -382,6 +427,14 @@ def _check(name: str, got, want, bf16: bool) -> float:
         if not torch.equal(got, want):
             raise AssertionError(f"fps indices differ at {tuple(got.shape)}")
         return 0.0
+    if name == "depth_fill":
+        err = (got - want).abs().max().item()
+        same_pixels = torch.equal(got > 0.01, want > 0.01)
+        if got.dtype != want.dtype or err > DEPTH_FILL_TOL or not same_pixels:
+            raise AssertionError(f"depth_fill max abs err {err} m at "
+                                 f"{tuple(got.shape)}, same completed pixels: "
+                                 f"{same_pixels}")
+        return err
     if name in ("ball_query", "three_nn"):
         # indices (and 3-NN distances) from the same arithmetic: equal
         for g, w_ in zip(got, want):
@@ -445,7 +498,7 @@ def phase_kernels(cases, bf16: bool = False, tag: str = "") -> dict:
     import torch
 
     from istnet_tpu_torch.ops import dispatch
-    tag = "bf16 " if bf16 else tag
+    tag = tag + "bf16 " if bf16 else tag
     errs = {}
     for name, case_list in cases.items():
         mod = dispatch.KERNELS[name]
@@ -581,26 +634,104 @@ def phase_timings(model, cases, device, tag: str = "") -> dict:
     return time_kernels(cases, tag)
 
 
+def _tensors(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for item in x:
+            yield from _tensors(item)
+
+
+def bound_ms(name: str, args, out) -> tuple[float, float]:
+    """The least ms the card could take for one call: (bytes, operations).
+    Bytes: every input tensor read once and every output written once over
+    the device memory rate. Operations: what the function needs on these
+    shapes over the peak rate of their type (float32 outside the tensor
+    cores; bf16 tensor cores for the bf16 matrix products of the fused SA
+    stage and the fold): ~10 a point pair for an FPS distance update, ~8 for
+    a ball-query or 3-NN distance test, 2 a multiply-add of an MLP or a
+    convolution (the fold, reassociated: the channel contraction once per
+    low-resolution pixel and each of the 9 taps; the interpolation after it
+    is left out), ~6 a channel for a 3-point interpolation, 1 an added
+    element for the scatters. Depth fill, the least the function needs on
+    this input: ~36 a pixel for the windows every pixel passes (the three
+    band crosses as separable running maxima ~20, the 5 x 5 closing as
+    separable max and min ~16), and ~442 a pixel that is valid in the input
+    for the two medians and the bilateral, which run only where the map is
+    valid (a median of 25 with the column sorts shared between neighbours:
+    9 + 82 = 91 compare-exchanges at 2 each; 13 bilateral taps at ~6). The
+    dilations only widen the valid set, so the input's count is a floor of
+    the medians'; the 9 x 9 and the six 5 x 5 dilations into empty pixels
+    are left out. So the bound is a lower one."""
+    import torch
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in list(_tensors(args)) + list(_tensors(out)))
+    f32 = 0.0     # operations at the float32 rate
+    mma = 0.0     # operations at the bf16 tensor-core rate
+    if name == "fps":
+        b, n, _ = args[0].shape
+        f32 = 10.0 * b * n * args[1]
+    elif name in ("ball_query_group", "ball_query", "sa_fused"):
+        xyz, new_xyz = args[2], args[3]
+        b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
+        f32 = 8.0 * b * n * m
+        if name == "sa_fused":
+            for ns, layers in zip(args[1], args[5]):
+                mma += sum(2.0 * w.shape[0] * w.shape[1] for w, _ in layers) \
+                    * b * m * ns
+    elif name in ("fp_interpolate", "three_nn"):
+        unknown, known = args[0], args[1]
+        b, n, m = unknown.shape[0], unknown.shape[1], known.shape[1]
+        f32 = 8.0 * b * n * m
+        if name == "fp_interpolate":
+            f32 += 6.0 * b * n * args[2].shape[-1]
+    elif name == "fold_upsample":
+        b, h, w, cin = args[0].shape
+        ops = 2.0 * 9 * b * h * w * cin * args[1].shape[-1]
+        if args[0].dtype == torch.bfloat16:
+            mma = ops
+        else:
+            f32 = ops
+    elif name == "group_scatter":
+        f32 = float(sum(g.numel() for g in args[1]))
+    elif name == "interp_scatter":
+        f32 = 6.0 * args[0].numel()
+    elif name == "depth_fill":
+        f32 = (36.0 * args[0].numel()
+               + 442.0 * float((args[0] > 0.01).sum().item()))
+    else:
+        raise KeyError(name)
+    return nbytes / HBM_BPS * 1e3, (f32 / F32_OPS + mma / BF16_OPS) * 1e3
+
+
 def time_kernels(cases, tag: str = "") -> dict:
     """Every kernel case against its plain version; per kernel the ms of
     one forward (or train step): each case's time times its count there
-    (``on_path``: True/False for once/never, or a launch count)."""
+    (``on_path``: True/False for once/never, or a launch count), and the
+    bound of the same calls with what sets it."""
     from istnet_tpu_torch.ops import dispatch
     times = {}
     for name, case_list in cases.items():
         mod = dispatch.KERNELS[name]
         kern = dispatch.wrapper(name)
-        k_ms = p_ms = 0.0
+        k_ms = p_ms = bytes_ms = ops_ms = least = 0.0
         for args, on_path in case_list:
             km = cuda_ms(lambda: kern(*args), iters=20)
             pm = cuda_ms(lambda: mod.plain(*args), iters=3, warmup=1)
+            by, op = bound_ms(name, args, kern(*args))
             note = ("" if on_path is True else " (off the path)"
                     if not on_path else f" (x{on_path} a step)")
             print(f"[timings] {tag}{name} {_label(name, args)}: kernel "
-                  f"{km:.4f} ms, plain {pm:.4f} ms{note}")
+                  f"{km:.4f} ms, plain {pm:.4f} ms, bound {max(by, op):.5f} "
+                  f"ms (bytes {by:.5f}, operations {op:.5f}){note}")
             k_ms += km * on_path
             p_ms += pm * on_path
-        times[name] = (k_ms, p_ms)
+            bytes_ms += by * on_path
+            ops_ms += op * on_path
+            least += max(by, op) * on_path
+        times[name] = (k_ms, p_ms, least,
+                       "bytes" if bytes_ms >= ops_ms else "operations")
     return times
 
 
@@ -908,6 +1039,296 @@ def phase_train_timings(device) -> None:
           f"ms, Adam + BN EMA {upd:.3f} ms; peak memory {peak:.2f} GiB")
 
 
+def _holey_depth(rng, b, h, w):
+    """Metres with 35% holes, an empty band at the top and empty columns in
+    the first image."""
+    d = rng.uniform(0.3, 2.8, size=(b, h, w)).astype("float32")
+    d[rng.rand(b, h, w) < 0.35] = 0.0
+    d[:, : h // 5] = 0.0
+    d[0, :, : w // 8] = 0.0
+    return d
+
+
+def phase_depth_fill(device) -> dict:
+    """Kernel 11 against its plain version at every listed shape and against
+    the OpenCV pipeline; returns its cases for the timing phase: the serving
+    frame (the path's call), and off the path the 35%-hole frame and a
+    batch of 24 of them."""
+    import numpy as np
+    import torch
+
+    from istnet_tpu_torch.data import depth_utils
+    from istnet_tpu_torch.data.device_preprocess import fill_missing
+    from istnet_tpu_torch.entry import make_frame
+    from istnet_tpu_torch.ops import depth_fill, dispatch
+    rng = np.random.RandomState(4)
+    h, w = FRAME_SHAPE
+    kern = dispatch.wrapper("depth_fill")
+    kept = {}
+    for shape in ((1, h, w), (TRAIN_BATCH, h, w), (2, 37, 150), (3, 100, 333),
+                  (1, 5, 5)):
+        depth = torch.from_numpy(_holey_depth(rng, *shape)).to(device)
+        if shape[1:] == (h, w):
+            kept[shape[0]] = depth
+        for bilateral in (False, True):
+            got = kern(depth, 3.0, bilateral)
+            want = depth_fill.plain(depth, 3.0, bilateral)
+            torch.cuda.synchronize()
+            if not bilateral and not torch.equal(got, want):
+                raise AssertionError(
+                    f"depth_fill {shape}: the max/min/median chain differs "
+                    f"by {(got - want).abs().max().item()}")
+            err = _check("depth_fill", got, want, False)
+        filled = (got > 0.01).float().mean().item()
+        print(f"[depth-fill] {shape}: chain without bilateral equal, with it "
+              f"max abs err {err:.3g} m; {filled:.1%} of pixels valid after")
+    zero = kern(torch.zeros(1, h, w, device=device))
+    if zero.abs().max().item() != 0.0:
+        raise AssertionError("depth_fill: an all-zero frame did not stay zero")
+    frame_mm = make_frame(3, SERVE_INSTANCES, hole_share=0.3)["depth_raw"]
+    want_mm = depth_utils.fill_missing(frame_mm, 1000.0, 1.0)
+    got_mm = fill_missing(torch.from_numpy(frame_mm)[None].to(device))[0]
+    err_mm = float(np.abs(got_mm.cpu().numpy() - want_mm).max())
+    if err_mm > DEPTH_FILL_CV2_TOL_MM:
+        raise AssertionError(f"depth_fill vs the OpenCV pipeline: {err_mm} mm")
+    print(f"[depth-fill] all-zero frame stays zero; a {h}x{w} frame against "
+          f"the OpenCV pipeline: max abs err {err_mm:.3g} mm")
+    # the call the serving path makes: phase 12's frame in metres (the time
+    # depends on the share of holes: the dilations of the second half run
+    # only on empty pixels, the medians and the bilateral only on valid ones)
+    serve_m = (torch.from_numpy(_serve_frame(device)[1])[None] / 1000.0
+               ).to(device)
+    for label, d in (("the serving frame", serve_m),
+                     ("the 35%-hole frame", kept[1])):
+        print(f"[depth-fill] {label}: {(d <= 0.01).float().mean().item():.1%} "
+              f"of pixels empty on the way in")
+    return {"depth_fill": [((serve_m,), True), ((kept[1],), False),
+                           ((kept[TRAIN_BATCH],), False)]}
+
+
+def _serve_frame(device):
+    """The frame of phase 12: 6 instances, the last with a 9-pixel mask,
+    padded to the bucket of 8 with empty masks."""
+    from istnet_tpu_torch.entry import make_frame
+    from istnet_tpu_torch.eval.test_loop import _pad_chunk
+    fr = make_frame(1, SERVE_INSTANCES, n_tiny=1)
+    masks, bboxes, category = _pad_chunk(fr["masks"], fr["bboxes"],
+                                         fr["category_label"], SERVE_BUCKET)
+    return fr["rgb_full"], fr["depth_raw"], masks, bboxes, category
+
+
+def phase_device_forward(dtype, device, per_forward: dict, tag: str = ""):
+    """One raw frame through the serving entry at full width, with the
+    launch counts of that one call; then the per-frame times of its parts."""
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.data.dataset import REAL_INTRINSICS
+    from istnet_tpu_torch.data.device_preprocess import (
+        fill_missing,
+        preprocess_shared_image,
+    )
+    from istnet_tpu_torch.entry import build_device_forward
+    model, fn = build_device_forward(dtype, device)
+    frame = _serve_frame(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    fn(*frame, gen)                                   # first calls
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out, n_valid = fn(*frame, gen)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {**{name: 0 for name in counts}, **per_forward, "depth_fill": 1}
+    if counts != want:
+        raise AssertionError(f"device forward launches {counts}, expected "
+                             f"{want}")
+    n_valid = n_valid.cpu().tolist()
+    if (n_valid[SERVE_INSTANCES:] != [0] * (SERVE_BUCKET - SERVE_INSTANCES)
+            or n_valid[SERVE_INSTANCES - 1] != 9
+            or min(n_valid[:SERVE_INSTANCES - 1]) <= 16):
+        raise AssertionError(f"n_valid {n_valid}")
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes != {"pred_qo": (SERVE_BUCKET, 1024, 3),
+                  "pred_rotation": (SERVE_BUCKET, 3, 3),
+                  "pred_translation": (SERVE_BUCKET, 3),
+                  "pred_size": (SERVE_BUCKET, 3)}:
+        raise AssertionError(f"output shapes {shapes}")
+    for k, v in out.items():
+        if v.dtype != torch.float32 or not torch.isfinite(v).all():
+            raise AssertionError(f"{k} is not finite float32 ({v.dtype})")
+    r = out["pred_rotation"]
+    orth = (r.transpose(1, 2) @ r
+            - torch.eye(3, device=device)).abs().max().item()
+    if orth > 1e-5:
+        raise AssertionError(f"R^T R - I = {orth}")
+    print(f"[device-forward] {tag}frame of {SERVE_INSTANCES} instances in a "
+          f"bucket of {SERVE_BUCKET}: n_valid {n_valid}, outputs finite "
+          f"float32, max |R^T R - I| {orth:.2g}; launches {counts}")
+
+    # per-frame times: CUDA events, and the host clock around a synchronise
+    rgb, depth, masks, bboxes, category = (torch.as_tensor(a).to(device)
+                                           for a in frame)
+    intr = torch.tensor(REAL_INTRINSICS, device=device)
+    with torch.inference_mode():
+        filled = fill_missing(depth[None].float())[0]
+        fill = cuda_ms(lambda: fill_missing(depth[None].float()), iters=20)
+        pre = cuda_ms(lambda: preprocess_shared_image(
+            rgb, filled, masks, bboxes, intr, gen), iters=20)
+        whole = cuda_ms(lambda: fn(*frame, gen), iters=10)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn(*frame, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 100
+    print(f"[timings] {tag}device forward a frame (bucket {SERVE_BUCKET}): "
+          f"{whole:.3f} ms by events, {wall:.3f} ms on the host clock, host "
+          f"arrays uploaded each call; of it depth fill with unit scaling "
+          f"{fill:.3f} ms, crop + sample + back-project + resize "
+          f"{pre:.3f} ms")
+    return counts, model
+
+
+def phase_device_reference(device) -> None:
+    """The serving path at a small model, card against CPU, same uniforms."""
+    import torch
+
+    from istnet_tpu_torch.data.dataset import REAL_INTRINSICS
+    from istnet_tpu_torch.data.device_preprocess import (
+        fill_missing,
+        preprocess_shared_image,
+    )
+    from istnet_tpu_torch.entry import build_device_forward
+    frame = _serve_frame(device)
+    v = torch.rand(SERVE_BUCKET, REF_POINTS,
+                   generator=torch.Generator().manual_seed(9))
+    outs = {}
+    for dev in ("cpu", device):
+        _, fn = build_device_forward(torch.float32, dev, 0, REF_SA_NPOINTS,
+                                     REF_IMG, REF_POINTS)
+        rgb, depth, masks, bboxes, _ = (torch.as_tensor(a).to(dev)
+                                        for a in frame)
+        with torch.inference_mode():
+            pre = preprocess_shared_image(
+                rgb, fill_missing(depth[None].float())[0], masks, bboxes,
+                torch.tensor(REAL_INTRINSICS), img_size=REF_IMG,
+                sample_num=REF_POINTS, v=v)
+        ep, _ = fn(*frame, v=v)
+        outs[str(dev)] = ({k: t.cpu() for k, t in pre.items()},
+                          {k: t.cpu() for k, t in ep.items()})
+    (pre_c, ep_c), (pre_g, ep_g) = outs["cpu"], outs[str(device)]
+    for name in ("choose", "n_valid", "flat_idx"):
+        if not torch.equal(pre_c[name], pre_g[name]):
+            raise AssertionError(f"card vs CPU {name} differ")
+    k = SERVE_INSTANCES
+    pts = (pre_c["pts"][:k] - pre_g["pts"][:k]).abs().max().item()
+    rgb_err = (pre_c["rgb"] - pre_g["rgb"]).abs().max().item()
+    if pts > REF_PTS_TOL or rgb_err > 1e-5:
+        raise AssertionError(f"card vs CPU points {pts} m, rgb {rgb_err}")
+    worst = max((ep_c[name][:k] - ep_g[name][:k]).abs().max().item()
+                for name in ep_c)
+    print(f"[device-reference] card vs CPU at SA npoints {REF_SA_NPOINTS}, "
+          f"{REF_IMG}x{REF_IMG}, {REF_POINTS} points, same uniforms: choose, "
+          f"n_valid and cell indices equal; points max abs err {pts:.3g} m, "
+          f"rgb {rgb_err:.3g}; outputs {worst:.3g}")
+    if worst > CPU_ATOL:
+        raise AssertionError(f"card vs CPU device forward differ by {worst} "
+                             f"> {CPU_ATOL}")
+
+
+def _busy_share(events) -> float:
+    """Union length of the device events over their extent."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    return (busy + hi - lo) / (max(e for _, e in spans) - spans[0][0])
+
+
+def phase_loops(model, device) -> None:
+    """Both device loops over a synthetic tree; same kept instances, finite
+    APs; frames/s on the host clock and the card's busy share of each."""
+    import logging
+    import os
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from istnet_tpu_torch.data import synthetic
+    from istnet_tpu_torch.data.dataset import REAL_INTRINSICS, TestDataset
+    from istnet_tpu_torch.eval import nocs_map, test_loop
+    from istnet_tpu_torch.utils import Config
+    quiet = logging.getLogger("chip_smoke.evaluate")   # keeps the AP tables out
+    quiet.setLevel(logging.ERROR)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        synthetic.build_test_tree(root, LOOP_FRAMES, LOOP_INSTANCES)
+        print(f"[loops] wrote {LOOP_FRAMES} frames of {LOOP_INSTANCES} "
+              f"instances in {time.perf_counter() - t0:.1f} s")
+        ds = TestDataset(Config({"img_size": 192, "sample_num": 1024}), root,
+                         device_preprocess=True)
+        fn = test_loop.make_device_forward(model, REAL_INTRINSICS)
+
+        def per_image(save):
+            test_loop.test_func_device(fn, ds, save, progress=False)
+
+        def batched(save):
+            test_loop.test_func_device_batched(
+                model, ds, save, REAL_INTRINSICS, batch_size=LOOP_BATCH,
+                kb=LOOP_KB, progress=False)
+
+        results = {}
+        for label, loop in (("test_func_device", per_image),
+                            ("test_func_device_batched", batched)):
+            loop(os.path.join(root, "warm_" + label))     # first calls
+            save = os.path.join(root, label)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                loop(save)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = (f"{_busy_share(events):.1%} of the device span "
+                    f"({len(events)} device events)" if events
+                    else "not measured (the profiler saw no device event)")
+            print(f"[loops] {label}: {LOOP_FRAMES} frames in {seconds:.3f} s "
+                  f"({LOOP_FRAMES / seconds:.1f} frames/s, "
+                  f"{seconds / LOOP_FRAMES * 1e3:.2f} ms a frame, device "
+                  f"events traced); card busy {busy}")
+            pkls = sorted(f for f in os.listdir(save) if f.endswith(".pkl"))
+            if len(pkls) != LOOP_FRAMES:
+                raise AssertionError(f"{label}: {len(pkls)} pkls")
+            results[label] = []
+            for name in pkls:
+                with open(os.path.join(save, name), "rb") as f:
+                    results[label].append(pickle.load(f))
+            iou_aps, pose_aps = nocs_map.evaluate(save, logger=quiet,
+                                                  plot_figure=False)
+            if not (np.isfinite(iou_aps).all() and np.isfinite(pose_aps).all()):
+                raise AssertionError(f"{label}: non-finite APs")
+        kept = 0
+        for a, b in zip(*results.values()):
+            for key in ("pred_class_ids", "pred_bboxes", "pred_scores"):
+                if not np.array_equal(a[key], b[key]):
+                    raise AssertionError(f"the loops kept different {key}")
+            if (a["pred_RTs"].shape != b["pred_RTs"].shape
+                    or not np.isfinite(b["pred_RTs"]).all()
+                    or not np.isfinite(a["pred_RTs"]).all()):
+                raise AssertionError("the loops' poses differ in shape or "
+                                     "are not finite")
+            kept += len(a["pred_class_ids"])
+        print(f"[loops] both loops wrote {LOOP_FRAMES} pkls with the same "
+              f"{kept} kept instances; nocs_map.evaluate gives finite APs")
+
+
 def main() -> int:
     device_info = phase_device()
     import torch
@@ -921,12 +1342,16 @@ def main() -> int:
     def record(path, dtype, errs, counts, times, names):
         for name in names:
             mod = dispatch.KERNELS[name]
-            k_ms, p_ms = times[name]
+            k_ms, p_ms, least, bound_by = times[name]
+            # library_ms: no single PyTorch call computes what any of these
+            # kernels computes (each fuses a search, a gather or a stencil
+            # chain with what follows it), so there is nothing to time
             kernels.append({"name": name, "path": path, "dtype": dtype,
                             "route": "cuda", "source": mod.SOURCE,
                             "replaces": mod.REPLACES, "launches": counts[name],
                             "max_abs_err": errs[name], "ms": k_ms,
-                            "plain_ms": p_ms})
+                            "plain_ms": p_ms, "bound_ms": least,
+                            "bound_by": bound_by, "library_ms": None})
 
     with policy(torch.float32):
         cases = {name: [(args, True) for args in arg_list]
@@ -937,6 +1362,19 @@ def main() -> int:
         phase_reference(model, device)
         times = phase_timings(model, cases, device)
     record("float32", "float32", errs, counts, times, list(cases))
+
+    with policy(torch.float32):
+        fill_cases = phase_depth_fill(device)
+        serve = {**{name: [(args, True) for args in arg_list] for name, arg_list
+                    in kernel_cases(device, SERVE_BUCKET).items()},
+                 **fill_cases}
+        errs_s = phase_kernels(serve, tag="serve ")
+        counts_s, serve_model = phase_device_forward(
+            torch.float32, device, F32_PER_FORWARD)
+        phase_device_reference(device)
+        phase_loops(serve_model, device)
+        times_s = time_kernels(serve, "serve ")
+    record("serve float32", "float32", errs_s, counts_s, times_s, list(serve))
 
     with policy(torch.bfloat16):
         cases16 = kernel_cases_bf16(device)
@@ -951,6 +1389,22 @@ def main() -> int:
     errs16["fps"], times16["fps"] = errs["fps"], times["fps"]
     record("bfloat16", "float32", errs16, counts16, times16, ["fps"])
     record("bfloat16", "bfloat16", errs16, counts16, times16, list(cases16))
+
+    with policy(torch.bfloat16):
+        serve16 = {name: case_list[:len(case_list) - (name == "sa_fused")]
+                   for name, case_list
+                   in kernel_cases_bf16(device, SERVE_BUCKET).items()}
+        errs_s16 = phase_kernels(serve16, bf16=True, tag="serve ")
+        counts_s16, _ = phase_device_forward(
+            torch.bfloat16, device, BF16_PER_FORWARD, "bf16 ")
+        times_s16 = time_kernels(serve16, "serve bf16 ")
+    # the fill and FPS run on float32 data under both policies
+    for name in ("depth_fill", "fps"):
+        errs_s16[name], times_s16[name] = errs_s[name], times_s[name]
+    record("serve bfloat16", "float32", errs_s16, counts_s16, times_s16,
+           ["depth_fill", "fps"])
+    record("serve bfloat16", "bfloat16", errs_s16, counts_s16, times_s16,
+           list(serve16))
 
     with policy(torch.float32):
         train_cases = train_kernel_cases(device)

@@ -1,4 +1,5 @@
-"""Build the production-shape IST-Net, its inputs and its train batches.
+"""Build the production-shape IST-Net, its inputs, its train batches and its
+raw frames.
 
 Counterpart of ``__graft_entry__.entry()`` / ``_make_inputs``: the full-width
 ``ISTNet`` (6 classes, SA npoints 512/256/128/64) on an explicit device, and
@@ -10,6 +11,11 @@ sets the bf16 deployment precision before ``entry()``.
 ``build_train_model`` and ``make_train_batch`` give the train step's model
 and batches at the training width, B=24 (``syn_bs`` 18 + ``real_bs`` 6 of
 ``config/ist_net_default.yaml``).
+
+``make_frame`` and ``build_device_forward`` are the serving path's entry:
+a synthetic raw 480 x 640 RGB-D frame with instance masks, and the function
+that takes such a frame to poses on the model's device
+(``eval/test_loop.py::make_device_forward``).
 
 Weights are random: torch's default layer init drawn from a
 ``torch.Generator`` (the ResNet trunk's convs with the reference's
@@ -141,3 +147,70 @@ def build_serving_model(dtype: torch.dtype = torch.bfloat16,
     forward; ``precision.set_compute_dtype`` restores another one."""
     precision.set_compute_dtype(dtype)
     return build_model(device, seed, sa_npoints)
+
+
+FRAME_H, FRAME_W = 480, 640
+
+
+def make_frame(seed: int = 0, k: int = 6, n_tiny: int = 0,
+               hole_share: float = 0.2) -> dict:
+    """A synthetic raw frame as ``TestDataset(device_preprocess=True)``
+    yields it, from a numpy ``RandomState(seed)``: ``rgb_full`` (480, 640,
+    3) uint8, ``depth_raw`` (480, 640) float32 mm (a slanted surface with a
+    box per instance in front of it, ``hole_share`` of the pixels and a band
+    at the top missing), ``masks`` (k, 480, 640) bool, ``bboxes`` (k, 4)
+    int32 [y1, x1, y2, x2], ``category_label`` (k,) int64. The last
+    ``n_tiny`` instances have 3 x 3 masks: fewer valid pixels than the
+    loops' ``min_points``."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:FRAME_H, 0:FRAME_W].astype(np.float32)
+    depth = 1400.0 + 0.5 * xx + 0.8 * yy
+    masks = np.zeros((k, FRAME_H, FRAME_W), bool)
+    bboxes = np.zeros((k, 4), np.int32)
+    cols = max(1, int(np.ceil(np.sqrt(k * FRAME_W / FRAME_H))))
+    rows = -(-k // cols)
+    cell_h, cell_w = (FRAME_H - 80) // rows, FRAME_W // cols
+    for i in range(k):
+        size = 3 if i >= k - n_tiny else int(rng.randint(
+            40, max(41, min(cell_h, cell_w) - 8)))
+        y0 = 80 + (i // cols) * cell_h + int(rng.randint(0, cell_h - size))
+        x0 = (i % cols) * cell_w + int(rng.randint(0, cell_w - size))
+        masks[i, y0:y0 + size, x0:x0 + size] = True
+        bboxes[i] = (y0, x0, y0 + size, x0 + size)
+        depth[y0:y0 + size, x0:x0 + size] = (
+            700.0 + 60.0 * i + 0.3 * xx[y0:y0 + size, x0:x0 + size])
+    depth[rng.rand(FRAME_H, FRAME_W) < hole_share] = 0.0
+    depth[:60] = 0.0
+    for i in range(k - n_tiny, k):      # the tiny masks keep their depth
+        y0, x0 = bboxes[i, :2]
+        depth[y0:y0 + 3, x0:x0 + 3] = 700.0 + 60.0 * i
+    return {
+        "rgb_full": (rng.rand(FRAME_H, FRAME_W, 3) * 255).astype(np.uint8),
+        "depth_raw": depth.astype(np.float32),
+        "masks": masks,
+        "bboxes": bboxes,
+        "category_label": rng.randint(0, NCLASS, size=(k,)).astype(np.int64),
+    }
+
+
+def build_device_forward(dtype: torch.dtype = torch.float32,
+                         device: str | torch.device = "cuda", seed: int = 0,
+                         sa_npoints=SA_NPOINTS, img_size: int = IMG,
+                         sample_num: int = NPOINTS):
+    """The serving path from a raw frame: ``(model, fn)`` with ``fn(rgb_full,
+    depth_raw, masks, bboxes, category, generator=None, v=None) ->
+    (end_points, n_valid)`` (``eval/test_loop.py::make_device_forward``),
+    the model built by ``build_serving_model`` under the policy ``dtype``,
+    the REAL camera's intrinsics. It runs on the card, through the
+    kernels, and raises without one; ``device="cpu"`` asks for the plain
+    versions on the CPU."""
+    from istnet_tpu_torch.data.dataset import REAL_INTRINSICS
+    from istnet_tpu_torch.eval.test_loop import make_device_forward
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_device_forward: no CUDA card; pass "
+                           "device='cpu' for the plain versions on the CPU")
+    model = build_serving_model(dtype, device, seed, sa_npoints)
+    return model, make_device_forward(model, REAL_INTRINSICS,
+                                      img_size=img_size,
+                                      sample_num=sample_num)

@@ -1,9 +1,11 @@
-"""Point-cloud ops, the fused SA stage and the fold-upsample conv, each a
+"""Point-cloud ops, the fused SA stage, the fold-upsample conv and the depth
+completion, each a
 hand-written CUDA kernel on CUDA tensors and its plain PyTorch version on
 CPU tensors (``dispatch.py``)."""
 
 from istnet_tpu_torch.ops.dispatch import (  # noqa: F401
     ball_query_group,
+    fill_in_multiscale,
     fold_upsample_conv,
     fp_interpolate,
     furthest_point_sample,

@@ -18,6 +18,7 @@ import torch
 
 from istnet_tpu_torch.ops import ball_query as _bq
 from istnet_tpu_torch.ops import ball_query_group as _bqg
+from istnet_tpu_torch.ops import depth_fill as _df
 from istnet_tpu_torch.ops import fold_upsample as _fold
 from istnet_tpu_torch.ops import fp_interpolate as _fpi
 from istnet_tpu_torch.ops import fps as _fps
@@ -38,6 +39,7 @@ KERNELS = {
     "group_scatter": _gs,
     "three_nn": _tnn,
     "interp_scatter": _is,
+    "depth_fill": _df,
 }
 _WRAPPERS = {
     "fps": _fps.furthest_point_sample_cuda,
@@ -49,6 +51,7 @@ _WRAPPERS = {
     "group_scatter": _gs.group_scatter_cuda,
     "three_nn": _tnn.three_nn_cuda,
     "interp_scatter": _is.interp_scatter_cuda,
+    "depth_fill": _df.fill_in_multiscale_cuda,
 }
 
 
@@ -107,3 +110,13 @@ def sa_msg_fused(radii, nsamples, xyz: torch.Tensor, new_xyz: torch.Tensor,
         return _sa.sa_msg_fused_cuda(radii, nsamples, xyz, new_xyz, features,
                                      folded)
     return _sa.plain(radii, nsamples, xyz, new_xyz, features, folded)
+
+
+def fill_in_multiscale(depth: torch.Tensor,
+                       max_depth: float = 3.0) -> torch.Tensor:
+    """ip_basic depth completion of (B, H, W) metres at every ``H, W >= 5``;
+    forward-only (it prepares inputs)."""
+    depth = depth.detach()
+    if _on_cuda(depth):
+        return _df.fill_in_multiscale_cuda(depth, max_depth)
+    return _df.plain(depth, max_depth)

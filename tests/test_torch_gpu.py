@@ -413,3 +413,86 @@ def test_card_train_step_matches_cpu_train_step(cuda):
         top = g.abs().max()
         if top > 1e-5 * scale:
             assert (g_gpu[k] - g).abs().max() <= 0.1 * top, k
+
+
+def _holey_depth(seed, b, h, w):
+    rng = np.random.RandomState(seed)
+    d = rng.uniform(0.3, 2.8, size=(b, h, w)).astype(np.float32)
+    d[rng.rand(b, h, w) < 0.35] = 0.0           # holes
+    d[:, : h // 5] = 0.0                        # empty band at the top
+    d[0, :, : w // 8] = 0.0                     # empty columns
+    return d
+
+
+@pytest.mark.parametrize("shape", [(1, 480, 640), (24, 480, 640), (2, 48, 128),
+                                   (2, 37, 150), (3, 100, 333), (1, 5, 5),
+                                   (1, 33, 5)])
+def test_depth_fill_kernel(cuda, shape):
+    """Kernel 11 against its plain version: the max/min/median chain equal,
+    the bilateral's exp, products and divide within 1e-5 m."""
+    from istnet_tpu_torch.ops import depth_fill
+
+    depth = _f32(_holey_depth(shape[1], *shape), cuda)
+    got = dispatch.wrapper("depth_fill")(depth, 3.0, bilateral=False)
+    assert torch.equal(got, depth_fill.plain(depth, 3.0, bilateral=False))
+    got = ops.fill_in_multiscale(depth)
+    want = depth_fill.plain(depth)
+    assert torch.equal(got > 0.01, want > 0.01)
+    assert (got - want).abs().max().item() <= 1e-5
+    assert ops.launch_counts() == _counts(depth_fill=2)
+
+
+def test_depth_fill_kernel_all_zero_and_refusals(cuda):
+    assert ops.fill_in_multiscale(
+        torch.zeros(2, 480, 640, device=cuda)).abs().max().item() == 0.0
+    with pytest.raises(ValueError):
+        ops.fill_in_multiscale(torch.zeros(1, 4, 640, device=cuda))
+    with pytest.raises(TypeError):
+        dispatch.wrapper("depth_fill")(
+            torch.zeros(1, 8, 8, device=cuda, dtype=torch.float64))
+
+
+def test_device_forward_runs_over_padded_and_near_empty_rows(cuda):
+    """A bucket whose padding rows have empty masks and an instance with 9
+    valid pixels: no index leaves its range on the card, and the card's
+    preprocessing equals the CPU's given the same uniforms."""
+    from istnet_tpu_torch.data.device_preprocess import (
+        fill_missing,
+        preprocess_shared_image,
+    )
+    from istnet_tpu_torch.data.dataset import REAL_INTRINSICS
+    from istnet_tpu_torch.entry import build_device_forward, make_frame
+    from istnet_tpu_torch.eval.test_loop import _pad_chunk
+
+    fr = make_frame(2, 5, n_tiny=1)
+    masks, bboxes, category = _pad_chunk(fr["masks"], fr["bboxes"],
+                                         fr["category_label"], 8)
+    v = torch.rand(8, 128, generator=torch.Generator().manual_seed(1))
+    pre = {}
+    for dev in ("cpu", cuda):
+        filled = fill_missing(
+            torch.from_numpy(fr["depth_raw"])[None].to(dev))[0]
+        out = preprocess_shared_image(
+            torch.from_numpy(fr["rgb_full"]).to(dev), filled,
+            torch.from_numpy(masks).to(dev), torch.from_numpy(bboxes).to(dev),
+            torch.tensor(REAL_INTRINSICS), img_size=48, sample_num=128, v=v)
+        pre[str(dev)] = {k: t.cpu() for k, t in out.items()}
+    a, b = pre["cpu"], pre[str(cuda)]
+    assert a["n_valid"].tolist()[4:] == [9, 0, 0, 0]
+    for name in ("n_valid", "choose", "flat_idx"):
+        assert torch.equal(a[name], b[name]), name
+    assert (a["pts"][:5] - b["pts"][:5]).abs().max().item() <= 1e-5
+    assert (a["rgb"] - b["rgb"]).abs().max().item() <= 1e-5
+
+    ops.reset_launch_counts()
+    _, fn = build_device_forward(torch.float32, cuda, 0, (32, 16, 8, 8), 48,
+                                 128)
+    out, n_valid = fn(fr["rgb_full"], fr["depth_raw"], masks, bboxes,
+                      category, torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert n_valid.tolist()[4:] == [9, 0, 0, 0]
+    for name, t in out.items():
+        assert t.shape[0] == 8 and torch.isfinite(t).all(), name
+    assert ops.launch_counts() == _counts(
+        depth_fill=1, fps=4, ball_query_group=4, fp_interpolate=4,
+        fold_upsample=1)

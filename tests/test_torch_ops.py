@@ -252,7 +252,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_other_devices_raise():
                                   [torch.zeros(1, 16, 4, 3)], 16),
                 "three_nn": (xyz, xyz),
                 "interp_scatter": (xyz, torch.zeros(1, 16, 3, dtype=torch.int32),
-                                   xyz, 16)}[name]
+                                   xyz, 16),
+                "depth_fill": (torch.zeros(1, 8, 8),)}[name]
         with pytest.raises(ValueError, match="must be on"):
             wrapper(*args)
     with pytest.raises(ValueError, match="no kernel"):
