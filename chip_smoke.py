@@ -22,8 +22,10 @@ then for each compute policy, float32 and bf16 (the deployment precision):
    port's plain-PyTorch CPU forward under the same policy (bf16: also the
    drift of the bf16 forward from the float32 one on the card);
 6. timings: the B=32 forward and its sections, each kernel against its
-   plain version (CUDA events after warmup); under bf16 also the fused SA
-   kernel at stage 1 against the unfused stage 1;
+   plain version (CUDA events after warmup), the fused SA kernel and the
+   fold also stage by stage (U and the main kernel; the GEMM and the
+   interpolation); under bf16 also the fused SA kernel at stage 1 against
+   the unfused stage 1;
 
 then the float32 train step (``train/train_state.py``):
 
@@ -43,7 +45,9 @@ then the float32 train step (``train/train_state.py``):
    npoints): the loss, the gradients and the updated state;
 10. train timings: median step ms over 10 steps with its forward, backward
    and update split (CUDA events), peak memory, and each kernel's ms per
-   step against its plain version's, from phase 7's cases.
+   step against its plain version's, from phase 7's cases; the two
+   scatters also against PyTorch's ``index_add_`` on the same rows (a
+   yardstick that the port never calls).
 
 then the serving path from a raw frame (``eval/test_loop.py``), under the
 float32 policy and, for 11-13, the bf16 one too:
@@ -75,8 +79,11 @@ JSON object of per-kernel results with each kernel's bound; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import importlib.metadata
 import json
+import re
 import subprocess
 import sys
 import time
@@ -184,17 +191,33 @@ def run(cmd: list[str]) -> str:
     return proc.stdout.strip()
 
 
+@contextlib.contextmanager
+def no_gc():
+    """A timed window without the cyclic garbage collector, as ``timeit``
+    keeps it: this script's own heap (some 10^5 tracked objects once the
+    profiler has run) makes a full collection a pause of 0.2-0.6 s, which
+    would land in whatever host-bound path is being timed."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    with no_gc():
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
@@ -254,6 +277,7 @@ def kernel_cases(device, batch: int = 0):
     import torch
 
     from istnet_tpu_torch.models.ist_net import CAM_RADII
+    from istnet_tpu_torch.ops import fold_upsample
 
     batch = batch or BATCH
     rng = np.random.RandomState(0)
@@ -274,10 +298,12 @@ def kernel_cases(device, batch: int = 0):
             (unknown, unknown[:, :m].contiguous(), feats.to(device)))
     h, w, cin, cout = FOLD_SHAPE
     ep = _epilogue(rng, cout)
+    # the fold's constants packed ahead, as PSPUpsample hands them over
     cases["fold_upsample"].append(
-        (_f32(rng.randn(batch, h, w, cin), device),
-         _f32(rng.uniform(-1, 1, (3, 3, cin, cout)) / np.sqrt(9 * cin), device),
-         _f32(rng.randn(cout) * 0.1, device), _f32(ep, device)))
+        (_f32(rng.randn(batch, h, w, cin), device), fold_upsample.pack_fold(
+            _f32(rng.uniform(-1, 1, (3, 3, cin, cout)) / np.sqrt(9 * cin),
+                 device),
+            _f32(rng.randn(cout) * 0.1, device), _f32(ep, device))))
     return cases
 
 
@@ -296,11 +322,14 @@ def _folded(rng, c_in, channels, device):
 def kernel_cases_bf16(device, batch: int = 0):
     """The bf16 path's cases: per kernel a list of (argument tuple, on the
     path). The fused SA case at stage 1's shape is #7's function; the model
-    keeps stage 1 unfused, so it is checked and timed but off the path."""
+    keeps stage 1 unfused, so it is checked and timed but off the path. The
+    fold's and the fused SA's weights come packed ahead, as the modules
+    hand them over."""
     import numpy as np
     import torch
 
     from istnet_tpu_torch.models.ist_net import CAM_RADII
+    from istnet_tpu_torch.ops import fold_upsample, sa_fused
 
     batch = batch or BATCH
     bf16 = torch.bfloat16
@@ -320,10 +349,11 @@ def kernel_cases_bf16(device, batch: int = 0):
     h, w, cin, cout = FOLD_SHAPE
     cases["fold_upsample"].append(
         ((_f32(rng.randn(batch, h, w, cin), device).to(bf16),
-          _f32(rng.uniform(-1, 1, (3, 3, cin, cout)) / np.sqrt(9 * cin),
-               device).to(bf16),
-          _f32(rng.randn(cout) * 0.1, device).to(bf16),
-          _f32(_epilogue(rng, cout), device)), True))
+          fold_upsample.pack_fold(
+              _f32(rng.uniform(-1, 1, (3, 3, cin, cout)) / np.sqrt(9 * cin),
+                   device).to(bf16),
+              _f32(rng.randn(cout) * 0.1, device).to(bf16),
+              _f32(_epilogue(rng, cout), device))), True))
     stages = [(shape, CAM_RADII[i + 1], True)
               for i, shape in enumerate(SA_FUSED_SHAPES)]
     for (n, m, cf, mlp), radii, on_path in stages + [(SA1_SHAPE, CAM_RADII[0],
@@ -331,7 +361,8 @@ def kernel_cases_bf16(device, batch: int = 0):
         xyz = _points(rng, batch, n).to(device)
         feats = (None if cf == 0 else
                  torch.relu(_f32(rng.randn(batch, n, cf), device)).to(bf16))
-        folded = tuple(_folded(rng, 3 + cf, mlp, device) for _ in NSAMPLES)
+        folded = sa_fused.pack_folded(
+            tuple(_folded(rng, 3 + cf, mlp, device) for _ in NSAMPLES))
         cases["sa_fused"].append(
             ((radii, NSAMPLES, xyz, xyz[:, :m].contiguous(), feats, folded),
              on_path))
@@ -416,7 +447,7 @@ def _label(name: str, args) -> str:
     if name == "depth_fill":
         empty = (args[0] <= 0.01).float().mean().item()
         return f"depth={tuple(args[0].shape)} empty={empty:.1%}"
-    return f"x={tuple(args[0].shape)} cout={args[1].shape[-1]}"
+    return f"x={tuple(args[0].shape)} cout={args[1].k.shape[-1]}"
 
 
 def _check(name: str, got, want, bf16: bool) -> float:
@@ -492,6 +523,17 @@ def _check(name: str, got, want, bf16: bool) -> float:
     return err
 
 
+def _unpacked(name: str, args):
+    """The case with its weights as plain tensors, for the two kernels
+    whose cases carry them packed."""
+    if name == "fold_upsample":
+        return args[0], args[1].k, args[1].b, args[1].epilogue
+    if name == "sa_fused":
+        from istnet_tpu_torch.ops.sa_fused import unpack_folded
+        return (*args[:5], unpack_folded(args[5]))
+    return None
+
+
 def phase_kernels(cases, bf16: bool = False, tag: str = "") -> dict:
     """Each case through the kernel and its plain version; per kernel the
     worst error. ``cases``: name -> list of (args, on the path)."""
@@ -508,6 +550,15 @@ def phase_kernels(cases, bf16: bool = False, tag: str = "") -> dict:
             got, want = kern(*args), mod.plain(*args)
             torch.cuda.synchronize()
             err = _check(name, got, want, bf16)
+            loose = _unpacked(name, args)
+            if loose is not None:
+                # packing on the fly, and a second launch: the same bits
+                again = kern(*loose)
+                for g, a in zip(*((got, again) if name == "sa_fused"
+                                  else ([got], [again]))):
+                    if not torch.equal(g, a):
+                        raise AssertionError(f"{name}: unpacked weights or a "
+                                             f"second launch change the bits")
             worst = max(worst, err)
             print(f"[kernels] {tag}{name} {_label(name, args)}: match, max abs "
                   f"err {err:.3g}")
@@ -641,6 +692,12 @@ def _tensors(x):
     elif isinstance(x, (tuple, list)):
         for item in x:
             yield from _tensors(item)
+    elif dataclasses.is_dataclass(x):
+        # packed weights: what they were made from, not the layout derived
+        # from it (PackedFold.km beside k)
+        for field in dataclasses.fields(x):
+            if field.name != "km":
+                yield from _tensors(getattr(x, field.name))
 
 
 def bound_ms(name: str, args, out) -> tuple[float, float]:
@@ -651,7 +708,9 @@ def bound_ms(name: str, args, out) -> tuple[float, float]:
     cores; bf16 tensor cores for the bf16 matrix products of the fused SA
     stage and the fold): ~10 a point pair for an FPS distance update, ~8 for
     a ball-query or 3-NN distance test, 2 a multiply-add of an MLP or a
-    convolution (the fold, reassociated: the channel contraction once per
+    convolution (the fused SA stage, reassociated: layer 1 once per point
+    and radius, its three xyz rows in float32 for the points and for the
+    centroids, layers 2..L once per slot row; the fold, reassociated: the channel contraction once per
     low-resolution pixel and each of the 9 taps; the interpolation after it
     is left out), ~6 a channel for a 3-point interpolation, 1 an added
     element for the scatters. Depth fill, the least the function needs on
@@ -677,8 +736,11 @@ def bound_ms(name: str, args, out) -> tuple[float, float]:
         b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
         f32 = 8.0 * b * n * m
         if name == "sa_fused":
-            for ns, layers in zip(args[1], args[5]):
-                mma += sum(2.0 * w.shape[0] * w.shape[1] for w, _ in layers) \
+            # layer 1 once a point (U) and once a centroid, not once a slot
+            for ns, ch in zip(args[1], args[5].chans):
+                mma += 2.0 * b * n * (ch[0] - 3) * ch[1]
+                f32 += 2.0 * 3 * b * (n + m) * ch[1]
+                mma += sum(2.0 * ci * co for ci, co in zip(ch[1:-1], ch[2:])) \
                     * b * m * ns
     elif name in ("fp_interpolate", "three_nn"):
         unknown, known = args[0], args[1]
@@ -688,7 +750,7 @@ def bound_ms(name: str, args, out) -> tuple[float, float]:
             f32 += 6.0 * b * n * args[2].shape[-1]
     elif name == "fold_upsample":
         b, h, w, cin = args[0].shape
-        ops = 2.0 * 9 * b * h * w * cin * args[1].shape[-1]
+        ops = 2.0 * 9 * b * h * w * cin * args[1].k.shape[-1]
         if args[0].dtype == torch.bfloat16:
             mma = ops
         else:
@@ -705,33 +767,120 @@ def bound_ms(name: str, args, out) -> tuple[float, float]:
     return nbytes / HBM_BPS * 1e3, (f32 / F32_OPS + mma / BF16_OPS) * 1e3
 
 
+def library_call(name: str, args):
+    """One PyTorch call that computes the kernel's sum on the same inputs,
+    as a yardstick the port never calls, or None where there is none: each
+    other kernel fuses a search, a gather, a product or a stencil chain with
+    what follows it. The scatters: ``index_add_`` of the same rows into the
+    same rows, per radius for the grouping scatter (its centroid sums left
+    out) and on the weighted rows, formed ahead, for the interpolation's."""
+    import torch
+    if name == "group_scatter":
+        idx_list, grads, n = args
+        b, c = grads[0].shape[0], grads[0].shape[-1]
+        base = torch.arange(b, device=grads[0].device)[:, None, None] * n
+        flat = [(i.long() + base).reshape(-1) for i in idx_list]
+        rows = [g.reshape(-1, c) for g in grads]
+        out = torch.zeros(b * n, c, device=grads[0].device)
+
+        def call():
+            out.zero_()
+            for f, r in zip(flat, rows):
+                out.index_add_(0, f, r)
+        return call
+    if name == "interp_scatter":
+        grad, idx, weight, m = args
+        b, n, c = grad.shape
+        base = torch.arange(b, device=grad.device)[:, None, None] * m
+        flat = (idx.long() + base).reshape(-1)
+        rows = (weight[..., None] * grad[:, :, None, :]).reshape(-1, c)
+        out = torch.zeros(b * m, c, device=grad.device)
+        return lambda: out.zero_().index_add_(0, flat, rows)
+    return None
+
+
+def device_us(fn, iters: int = 10) -> dict:
+    """Device microseconds a call by kernel name (torch.profiler's device
+    events): what the card spends, whatever the host takes to launch it.
+    The trace holds ``iters + 1`` calls; the profiler now and then loses
+    the first events after its start, so the first call is there to be
+    lost. A name's last ``iters`` rounds of events, in time order, are its
+    launches of call after call; each launch counts with its median over
+    the calls, so that one event with a broken time range does not move
+    the reading. A name with too few events for that reads NaN."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters + 1):
+            fn()
+        torch.cuda.synchronize()
+    spans: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.search(r"[A-Za-z0-9_]*_kernel[A-Za-z0-9_]*|$",
+                             e.name).group(0) or "other"
+            spans.setdefault(name, []).append(
+                (e.time_range.start, e.time_range.end - e.time_range.start))
+    sums = {}
+    for name, events in spans.items():
+        per_call = -(-len(events) // (iters + 1))
+        us = [d for _, d in sorted(events)][-per_call * iters:]
+        sums[name] = float("nan") if len(us) < per_call * iters else sum(
+            statistics.median(us[k::per_call]) for k in range(per_call))
+    return sums
+
+
+def _stage_split(name: str, kern, args, tag: str) -> None:
+    """The fused SA kernel (U, then the main kernel) and the fold (GEMM,
+    then interpolation) stage by stage, as device time: by events a call of
+    these wrappers can cost more host time than card time."""
+    if name in ("sa_fused", "fold_upsample"):
+        sums = device_us(lambda: kern(*args))
+        parts = ", ".join(f"{k} {v:.1f}" for k, v in sorted(sums.items()))
+        print(f"[timings] {tag}{name} {_label(name, args)} device us a call "
+              f"by stage: {parts or 'not measured (no device event)'}")
+
+
 def time_kernels(cases, tag: str = "") -> dict:
     """Every kernel case against its plain version; per kernel the ms of
     one forward (or train step): each case's time times its count there
-    (``on_path``: True/False for once/never, or a launch count), and the
-    bound of the same calls with what sets it."""
+    (``on_path``: True/False for once/never, or a launch count), the
+    bound of the same calls with what sets it, and the library call's ms
+    where there is one."""
     from istnet_tpu_torch.ops import dispatch
     times = {}
     for name, case_list in cases.items():
         mod = dispatch.KERNELS[name]
         kern = dispatch.wrapper(name)
-        k_ms = p_ms = bytes_ms = ops_ms = least = 0.0
+        k_ms = p_ms = l_ms = bytes_ms = ops_ms = least = 0.0
+        lib = None
         for args, on_path in case_list:
             km = cuda_ms(lambda: kern(*args), iters=20)
             pm = cuda_ms(lambda: mod.plain(*args), iters=3, warmup=1)
+            lib = library_call(name, args)
+            lm = None if lib is None else cuda_ms(lib, iters=20)
             by, op = bound_ms(name, args, kern(*args))
             note = ("" if on_path is True else " (off the path)"
                     if not on_path else f" (x{on_path} a step)")
+            lib_note = "" if lm is None else f", index_add_ {lm:.4f} ms"
             print(f"[timings] {tag}{name} {_label(name, args)}: kernel "
-                  f"{km:.4f} ms, plain {pm:.4f} ms, bound {max(by, op):.5f} "
-                  f"ms (bytes {by:.5f}, operations {op:.5f}){note}")
+                  f"{km:.4f} ms, plain {pm:.4f} ms{lib_note}, bound "
+                  f"{max(by, op):.5f} ms (bytes {by:.5f}, operations "
+                  f"{op:.5f}){note}")
+            _stage_split(name, kern, args, tag)
             k_ms += km * on_path
             p_ms += pm * on_path
+            l_ms += (lm or 0.0) * on_path
             bytes_ms += by * on_path
             ops_ms += op * on_path
             least += max(by, op) * on_path
         times[name] = (k_ms, p_ms, least,
-                       "bytes" if bytes_ms >= ops_ms else "operations")
+                       "bytes" if bytes_ms >= ops_ms else "operations",
+                       l_ms if lib is not None else None)
     return times
 
 
@@ -1011,23 +1160,25 @@ def phase_train_timings(device) -> None:
     step_ms = []
     for step in range(2, 2 + TIMED_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        train_step(model, opt, batch, step, gen, cfg)
-        ev[1].record()
-        torch.cuda.synchronize()
+        with no_gc():
+            ev[0].record()
+            train_step(model, opt, batch, step, gen, cfg)
+            ev[1].record()
+            torch.cuda.synchronize()
         step_ms.append(ev[0].elapsed_time(ev[1]))
     split = []
     for step in range(2 + TIMED_STEPS, 2 + 2 * TIMED_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        start_step(model, opt, step, cfg)
-        ev[0].record()
-        total, _ = step_loss(model, batch, gen, cfg)
-        ev[1].record()
-        total.backward()
-        ev[2].record()
-        finish_step(model, opt, step, cfg)
-        ev[3].record()
-        torch.cuda.synchronize()
+        with no_gc():
+            start_step(model, opt, step, cfg)
+            ev[0].record()
+            total, _ = step_loss(model, batch, gen, cfg)
+            ev[1].record()
+            total.backward()
+            ev[2].record()
+            finish_step(model, opt, step, cfg)
+            ev[3].record()
+            torch.cuda.synchronize()
         split.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     med = statistics.median(step_ms)
@@ -1175,11 +1326,12 @@ def phase_device_forward(dtype, device, per_forward: dict, tag: str = ""):
         pre = cuda_ms(lambda: preprocess_shared_image(
             rgb, filled, masks, bboxes, intr, gen), iters=20)
         whole = cuda_ms(lambda: fn(*frame, gen), iters=10)
-        t0 = time.perf_counter()
-        for _ in range(10):
-            fn(*frame, gen)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 100
+        with no_gc():
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn(*frame, gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 100
     print(f"[timings] {tag}device forward a frame (bucket {SERVE_BUCKET}): "
           f"{whole:.3f} ms by events, {wall:.3f} ms on the host clock, host "
           f"arrays uploaded each call; of it depth fill with unit scaling "
@@ -1289,7 +1441,7 @@ def phase_loops(model, device) -> None:
             loop(os.path.join(root, "warm_" + label))     # first calls
             save = os.path.join(root, label)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof, no_gc():
                 t0 = time.perf_counter()
                 loop(save)
                 torch.cuda.synchronize()
@@ -1342,16 +1494,15 @@ def main() -> int:
     def record(path, dtype, errs, counts, times, names):
         for name in names:
             mod = dispatch.KERNELS[name]
-            k_ms, p_ms, least, bound_by = times[name]
-            # library_ms: no single PyTorch call computes what any of these
-            # kernels computes (each fuses a search, a gather or a stencil
-            # chain with what follows it), so there is nothing to time
+            k_ms, p_ms, least, bound_by, l_ms = times[name]
+            # library_ms: index_add_ for the two scatters, null elsewhere
+            # (library_call says why)
             kernels.append({"name": name, "path": path, "dtype": dtype,
                             "route": "cuda", "source": mod.SOURCE,
                             "replaces": mod.REPLACES, "launches": counts[name],
                             "max_abs_err": errs[name], "ms": k_ms,
                             "plain_ms": p_ms, "bound_ms": least,
-                            "bound_by": bound_by, "library_ms": None})
+                            "bound_by": bound_by, "library_ms": l_ms})
 
     with policy(torch.float32):
         cases = {name: [(args, True) for args in arg_list]

@@ -8,7 +8,8 @@
 // plain PyTorch version (ops/pointnet2.py: pairwise_d2), so kernel and
 // plain version decide every radius test identically. __ballot_sync marks
 // the hits of a 32-point chunk, __popc ranks them, and the scan stops once
-// every list is full.
+// every list is full. The scan is a chain (each chunk's ranks need the
+// counts before it), so each point is fetched one chunk ahead of its test.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,12 +37,23 @@ __device__ __forceinline__ void warp_ball_query(
   const float an = norm2_rn(cx, cy, cz);
 #pragma unroll
   for (int r = 0; r < kMaxRadii; ++r) cnt[r] = 0;
+  // the next chunk's point is loaded before this chunk's is tested: the
+  // loads do not wait for the counts, so their latency hides behind the
+  // test (same values, same arithmetic, same decisions). Loading the chunk
+  // coalesced and handing each lane its point by shuffle measured slower.
+  float nx = 0.f, ny = 0.f, nz = 0.f;
+  if (lane < n) {
+    nx = pts[3 * lane], ny = pts[3 * lane + 1], nz = pts[3 * lane + 2];
+  }
   for (int base = 0; base < n; base += 32) {
     const int i = base + lane;
     float d2 = 0.f;
     const bool real = i < n;
+    const float px = nx, py = ny, pz = nz;
+    if (i + 32 < n) {
+      nx = pts[3 * (i + 32)], ny = pts[3 * (i + 32) + 1], nz = pts[3 * (i + 32) + 2];
+    }
     if (real) {
-      const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
       const float bn = norm2_rn(px, py, pz);
       const float ab = __fadd_rn(__fadd_rn(__fmul_rn(cx, px), __fmul_rn(cy, py)),
                                  __fmul_rn(cz, pz));

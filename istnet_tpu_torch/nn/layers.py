@@ -31,6 +31,39 @@ def cast(t: torch.Tensor | None) -> torch.Tensor | None:
     return None if t is None else t.to(compute_dtype())
 
 
+class DerivedCache:
+    """A value derived from a module's parameters and buffers (BN-folded
+    and packed weights, a permuted kernel), built once and rebuilt when
+    one of them changes: an entry keeps the source tensors themselves
+    beside each one's storage address and version counter, so a replaced
+    Parameter, ``load_state_dict``, an optimizer step, an in-place edit and
+    ``.to()`` all miss it (the kept tensors stay alive, so no later
+    allocation can pass for one of them); the owning module also calls
+    ``clear`` from ``train()``. A write through ``.data`` moves no counter:
+    follow it with ``clear`` (or ``train()``/``eval()``)."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self) -> None:
+        self._sources, self._key, self._value = (), None, None
+
+    def get(self, tensors, extra, build):
+        """The cached value for these tensors and ``extra`` (anything
+        hashable the value also depends on), built by ``build()`` if a
+        tensor was replaced or the key moved."""
+        tensors = tuple(tensors)
+        try:
+            key = (extra, tuple((t.data_ptr(), t._version) for t in tensors))
+        except RuntimeError:      # inference tensors keep no version counter
+            return build()
+        same = len(tensors) == len(self._sources) and all(
+            a is b for a, b in zip(tensors, self._sources))
+        if not same or key != self._key:
+            self._value, self._sources, self._key = build(), tensors, key
+        return self._value
+
+
 def conv2d_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """Apply ``conv`` (its weight, bias, stride, padding) to an NHWC map, in
     the compute dtype (``istnet_tpu/nn/layers.py:106-113``)."""
@@ -80,6 +113,10 @@ class BatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
         self.batch_mean: torch.Tensor | None = None
         self.batch_var: torch.Tensor | None = None
+
+    def eval_tensors(self) -> tuple:
+        """What the eval transform is made from (a ``DerivedCache`` key)."""
+        return self.weight, self.bias, self.running_mean, self.running_var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xs = x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)

@@ -29,8 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from istnet_tpu_torch import ops
-from istnet_tpu_torch.nn.layers import BatchNorm, pointwise
+from istnet_tpu_torch.nn.layers import BatchNorm, DerivedCache, pointwise
 from istnet_tpu_torch.nn.precision import compute_dtype
+from istnet_tpu_torch.ops.sa_fused import pack_folded
 
 SA_MLPS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256))
 SA_NSAMPLES = (16, 32)
@@ -83,7 +84,11 @@ def _fold_shared_mlp(sm: SharedMLP) -> tuple:
 
 
 class PointnetSAModuleMSG(nn.Module):
-    """Set abstraction with multi-scale grouping (use_xyz=True)."""
+    """Set abstraction with multi-scale grouping (use_xyz=True).
+
+    The fused path's BN-folded weights are folded and packed for the kernel
+    once (``folded``) and kept until a parameter or buffer they come from
+    changes."""
 
     def __init__(self, npoint: int, radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]]):
@@ -92,6 +97,23 @@ class PointnetSAModuleMSG(nn.Module):
         self.radii = tuple(radii)
         self.nsamples = tuple(nsamples)
         self.mlps = nn.ModuleList(SharedMLP(spec) for spec in mlps)
+        self._folded = DerivedCache()
+
+    def train(self, mode: bool = True):
+        self._folded.clear()
+        return super().train(mode)
+
+    def folded(self):
+        """The eval-BN-folded MLPs of the radii: packed for the kernel and
+        cached when no graph is recorded, else plain float32 tuples."""
+        def fold():
+            return [_fold_shared_mlp(mlp) for mlp in self.mlps]
+
+        if torch.is_grad_enabled():
+            return fold()
+        sources = [t for mlp in self.mlps for layer in mlp
+                   for t in (layer.conv.weight, *layer.normlayer.bn.eval_tensors())]
+        return self._folded.get(sources, None, lambda: pack_folded(fold()))
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor | None):
         fps_idx = ops.furthest_point_sample(xyz, self.npoint)
@@ -102,9 +124,8 @@ class PointnetSAModuleMSG(nn.Module):
         # features present (stage 1 stays unfused)
         if (not self.training and dt == torch.bfloat16
                 and features is not None):
-            folded = [_fold_shared_mlp(mlp) for mlp in self.mlps]
             fused = ops.sa_msg_fused(self.radii, self.nsamples, xyz, new_xyz,
-                                     features, folded)
+                                     features, self.folded())
             return new_xyz, torch.cat([f.to(dt) for f in fused], dim=-1)
         grouped = ops.ball_query_group(self.radii, self.nsamples, xyz,
                                        new_xyz, features, out_dtype=dt)

@@ -29,6 +29,7 @@ from torch import nn
 from istnet_tpu_torch import ops
 from istnet_tpu_torch.nn.layers import (
     BatchNorm,
+    DerivedCache,
     Dropout2d,
     PReLU,
     adaptive_avg_pool,
@@ -39,6 +40,8 @@ from istnet_tpu_torch.nn.layers import (
     resize_bilinear,
     resize_bilinear_align_corners,
 )
+from istnet_tpu_torch.nn.precision import compute_dtype
+from istnet_tpu_torch.ops.fold_upsample import pack_fold
 
 # (planes, stride, blocks) of the resnet18 stages the reference's
 # psp_models factory builds (it hardcodes resnet18)
@@ -118,11 +121,15 @@ class PSPUpsample(nn.Module):
     """x2 bilinear (align_corners=True) + 3x3 conv + BN + PReLU, evaluated
     as the fold (``conv3x3_on_doubled``). ``fold_kernel=True`` sends the
     fold with its eval BN + PReLU epilogue through ``ops.fold_upsample_conv``
-    at eval: the CUDA kernel on the card, the same plain fold on the CPU."""
+    at eval: the CUDA kernel on the card, the same plain fold on the CPU.
+    The kernel's constants (the cast HWIO kernel packed for the GEMM, the
+    cast bias, the epilogue rows) are built once per set of weights and
+    compute dtype (``packed``)."""
 
     def __init__(self, cin: int, cout: int, fold_kernel: bool = False):
         super().__init__()
         self.fold_kernel = fold_kernel
+        self._packed = DerivedCache()
         self.conv = nn.Sequential(
             nn.Upsample(scale_factor=2, mode="bilinear", align_corners=True),
             nn.Conv2d(cin, cout, 3, padding=1),
@@ -135,12 +142,30 @@ class PSPUpsample(nn.Module):
         return torch.stack([bn.running_mean, bn.invstd(), bn.weight, bn.bias,
                             prelu.weight.expand_as(bn.bias)])
 
+    def train(self, mode: bool = True):
+        self._packed.clear()
+        return super().train(mode)
+
+    def packed(self):
+        """The fold kernel's constants in the compute dtype, cached when no
+        graph is recorded."""
+        conv, bn, prelu = self.conv[1], self.conv[2], self.conv[3]
+
+        def build():
+            return pack_fold(cast(conv.weight.permute(2, 3, 1, 0)),
+                             cast(conv.bias), self.epilogue())
+
+        if torch.is_grad_enabled():
+            return build()
+        sources = (conv.weight, conv.bias, *bn.eval_tensors(), prelu.weight)
+        return self._packed.get(sources, compute_dtype(), build)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv[1]
+        if self.fold_kernel and not self.training:
+            return ops.fold_upsample_conv(cast(x), self.packed())
         k = cast(conv.weight.permute(2, 3, 1, 0))             # HWIO
         x, b = cast(x), cast(conv.bias)
-        if self.fold_kernel and not self.training:
-            return ops.fold_upsample_conv(x, k, b, self.epilogue())
         return self.conv[3](self.conv[2](conv3x3_on_doubled(x, k, b)))
 
 

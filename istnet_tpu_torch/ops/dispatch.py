@@ -93,9 +93,10 @@ def fp_interpolate(unknown: torch.Tensor, known: torch.Tensor,
     return _fpi.plain(unknown, known, feats)
 
 
-def fold_upsample_conv(x: torch.Tensor, k: torch.Tensor,
-                       b: torch.Tensor | None,
+def fold_upsample_conv(x: torch.Tensor, k, b: torch.Tensor | None = None,
                        epilogue: torch.Tensor | None = None) -> torch.Tensor:
+    """``k``: the HWIO kernel, or a ``fold_upsample.PackedFold`` that
+    carries the kernel, the bias and the epilogue rows."""
     if _on_cuda(x):
         return _fold.fold_upsample_conv_cuda(x, k, b, epilogue)
     return _fold.plain(x, k, b, epilogue)
@@ -105,7 +106,8 @@ def sa_msg_fused(radii, nsamples, xyz: torch.Tensor, new_xyz: torch.Tensor,
                  features: torch.Tensor | None, folded) -> list:
     """The fused eval SA stage at every shape: the JAX package's shape
     gates (``n % 128``, ``m % tm``) came from Mosaic's tiling, not from the
-    function."""
+    function. ``folded``: per radius and layer ``(W, b)``, or a
+    ``sa_fused.PackedFolded`` of them."""
     if _on_cuda(xyz):
         return _sa.sa_msg_fused_cuda(radii, nsamples, xyz, new_xyz, features,
                                      folded)

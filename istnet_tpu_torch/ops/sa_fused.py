@@ -10,8 +10,12 @@ features, C = 3). Only the bf16 policy's eval forward runs it
 
 ``folded``: per radius, per layer ``(W (c_in, c_out), b (c_out,))`` in
 float32 with eval BN folded in (``nn/pointnet2_msg.py::_fold_shared_mlp``);
-W is rounded to bf16 here, as the JAX wrapper rounds it. Per radius the
-result is ``(B, M, c_last)`` bf16. Tolerance against the JAX kernels and
+W is rounded to bf16 here, as the JAX wrapper rounds it. The kernel reads
+the weights in the layout of ``pack_folded`` (bf16, every width padded with
+zeros to a multiple of 16: the tensor-core tile); a ``PackedFolded`` may
+be handed over in place of ``folded``, and ``PointnetSAModuleMSG`` keeps one
+so that folding and packing run once per set of weights and not on every
+forward. Per radius the result is ``(B, M, c_last)`` bf16. Tolerance against the JAX kernels and
 between kernel and plain version: 2e-2 * max(1, max |plain|)
 (``tests/test_sa_fused.py``); the products are exact in both, so they
 differ only where float32 sums taken in another order round to bf16
@@ -21,6 +25,8 @@ differently.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -38,12 +44,92 @@ MAX_RADII = 2
 MAX_NSAMPLE = 64
 MAX_LAYERS = 4
 
-__all__ = ["sa_msg_fused_cuda", "plain"]
+TILE = 16    # widths are padded to this: k of mma.m16n8k16, two n-tiles
+
+__all__ = ["sa_msg_fused_cuda", "plain", "PackedFolded", "pack_folded",
+           "unpack_folded"]
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to bf16, as float32 values."""
     return t.to(torch.bfloat16).float()
+
+
+def _ceil_tile(c: int) -> int:
+    return -(-c // TILE) * TILE
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedFolded:
+    """Folded MLPs in the kernel's layout. ``chans[r]``: the true widths of
+    radius r's MLP, ``(3 + cf, c_1, .., c_L)``. ``ws[r][l]``: bf16, layer 0
+    ``(3 + ceil16(cf), ceil16(c_1))`` (the three xyz rows first, then the
+    feature rows), layer l > 0 ``(ceil16(c_l), ceil16(c_{l+1}))``;
+    ``bs[r][l]``: float32 ``(ceil16(c_{l+1}),)``; zeros in all padding."""
+    chans: tuple
+    ws: tuple
+    bs: tuple
+
+    @property
+    def device(self) -> torch.device:
+        return self.ws[0][0].device
+
+    @functools.cached_property
+    def c_args(self) -> tuple:
+        """The kernel's view, made once: the depth, and ctypes arrays of
+        the widths and of the weights' and biases' addresses."""
+        chans = [c for ch in self.chans for c in ch]
+        ws = [w for pw in self.ws for w in pw]
+        bs = [b for pb in self.bs for b in pb]
+        if not all(t.is_contiguous() for t in ws + bs):
+            raise ValueError("sa_msg_fused: packed weights must be contiguous")
+        return (len(self.ws[0]), (ctypes.c_int * len(chans))(*chans),
+                (ctypes.c_void_p * len(ws))(*(w.data_ptr() for w in ws)),
+                (ctypes.c_void_p * len(bs))(*(b.data_ptr() for b in bs)))
+
+
+def pack_folded(folded) -> PackedFolded:
+    """Round the folded weights to bf16 and pad them to the kernel's tiles.
+    Pure tensor code on the weights' device; one radius's layers must chain
+    (``c_out`` of a layer is ``c_in`` of the next) and all radii share the
+    input width and the depth."""
+    if isinstance(folded, PackedFolded):
+        return folded
+    chans, ws, bs = [], [], []
+    for layers in folded:
+        ch, pw, pb = [layers[0][0].shape[0]], [], []
+        if ch[0] < 3:
+            raise ValueError(f"sa_msg_fused: layer 1 takes {ch[0]} < 3 "
+                             f"channels")
+        for w, b in layers:
+            c_in, c_out = w.shape
+            if c_in != ch[-1] or b.shape != (c_out,):
+                raise ValueError(f"sa_msg_fused: layer W {tuple(w.shape)}, "
+                                 f"b {tuple(b.shape)} after {ch[-1]} "
+                                 f"channels")
+            rows = 3 + _ceil_tile(c_in - 3) if not pw else _ceil_tile(c_in)
+            wp = torch.zeros(rows, _ceil_tile(c_out), dtype=torch.bfloat16,
+                             device=w.device)
+            wp[:c_in, :c_out] = w
+            bp = torch.zeros(_ceil_tile(c_out), dtype=torch.float32,
+                             device=w.device)
+            bp[:c_out] = b
+            pw.append(wp)
+            pb.append(bp)
+            ch.append(c_out)
+        chans.append(tuple(ch))
+        ws.append(tuple(pw))
+        bs.append(tuple(pb))
+    return PackedFolded(tuple(chans), tuple(ws), tuple(bs))
+
+
+def unpack_folded(packed: PackedFolded) -> tuple:
+    """The ``folded`` tuples a ``PackedFolded`` holds: float32 weights with
+    bf16 values, the padding cut away."""
+    return tuple(
+        tuple((w[:c_in, :c_out].float(), b[:c_out].clone())
+              for w, b, c_in, c_out in zip(pw, pb, ch[:-1], ch[1:]))
+        for pw, pb, ch in zip(packed.ws, packed.bs, packed.chans))
 
 
 def plain(radii, nsamples, xyz: torch.Tensor, new_xyz: torch.Tensor,
@@ -57,6 +143,8 @@ def plain(radii, nsamples, xyz: torch.Tensor, new_xyz: torch.Tensor,
     bf16-valued operands (exact products, so CPU and card agree up to
     summation order), and the max over the slots before the last bias and
     ReLU (``sa_fused_pallas.py:198-249``)."""
+    if isinstance(folded, PackedFolded):
+        folded = unpack_folded(folded)
     xyz = xyz.float()
     cen = new_xyz.float()
     d2 = pairwise_d2(cen, xyz)
@@ -79,24 +167,25 @@ def sa_msg_fused_cuda(radii, nsamples, xyz: torch.Tensor,
                       folded) -> list:
     """The CUDA kernel; same arguments and result as ``plain``. xyz and
     the centroids float32, features bf16 or None; 1 or 2 radii with
-    ``ns <= 64`` and one MLP depth of 1 to 4 layers."""
+    ``ns <= 64`` and one MLP depth of 1 to 4 layers; ``folded`` as tuples
+    (packed here, on the fly) or a ``PackedFolded`` on the same device."""
     radii, nsamples = tuple(radii), tuple(nsamples)
     nr = len(radii)
-    depth = len(folded[0]) if folded else 0
-    if (not 1 <= nr <= MAX_RADII or len(nsamples) != nr or len(folded) != nr
+    packed = pack_folded(folded)
+    depth = len(packed.ws[0]) if packed.ws else 0
+    if (not 1 <= nr <= MAX_RADII or len(nsamples) != nr
+            or len(packed.ws) != nr
             or any(not 1 <= ns <= MAX_NSAMPLE for ns in nsamples)
             or not 1 <= depth <= MAX_LAYERS
-            or any(len(layers) != depth for layers in folded)):
+            or any(len(ws) != depth for ws in packed.ws)):
         raise ValueError(f"sa_msg_fused: radii {radii}, nsamples {nsamples}, "
-                         f"MLP depths {[len(ls) for ls in folded]} (1 or 2 "
+                         f"MLP depths {[len(ws) for ws in packed.ws]} (1 or 2 "
                          f"radii, ns <= {MAX_NSAMPLE}, one depth <= "
                          f"{MAX_LAYERS})")
-    flat = [t for layers in folded for wb in layers for t in wb]
     geo = (xyz, new_xyz) if features is None else (xyz, new_xyz, features)
     tensors = _build.cuda_inputs(
-        "sa_msg_fused", *geo, *flat,
-        dtypes=[_build.F32, _build.F32, _build.BF16][:len(geo)]
-        + [_build.F32] * len(flat))
+        "sa_msg_fused", *geo,
+        dtypes=[_build.F32, _build.F32, _build.BF16][:len(geo)])
     xyz, new_xyz = tensors[:2]
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
@@ -106,36 +195,28 @@ def sa_msg_fused_cuda(radii, nsamples, xyz: torch.Tensor,
         shape = None if features is None else tuple(features.shape)
         raise ValueError(f"sa_msg_fused: xyz {tuple(xyz.shape)}, new_xyz "
                          f"{tuple(new_xyz.shape)}, features {shape}")
-    it = iter(tensors[len(geo):])
-    chans, ws, bs, us, outs = [], [], [], [], []
-    for _ in range(nr):
-        c_in = 3 + cf
-        chans.append(c_in)
-        for _ in range(depth):
-            w, bias = next(it), next(it)
-            c_out = w.shape[-1]
-            if w.shape != (c_in, c_out) or bias.shape != (c_out,):
-                raise ValueError(f"sa_msg_fused: layer W {tuple(w.shape)}, "
-                                 f"b {tuple(bias.shape)} after {c_in} "
-                                 f"channels")
-            cpad = -(-c_out // 8) * 8
-            wp = torch.zeros(c_in, cpad, dtype=torch.bfloat16,
-                             device=xyz.device)
-            wp[:, :c_out] = w
-            ws.append(wp)
-            bs.append(bias)
-            chans.append(c_out)
-            c_in = c_out
-        us.append(torch.empty(b, n, chans[-depth], dtype=torch.bfloat16,
-                              device=xyz.device))
-        outs.append(torch.empty(b, m, c_in, dtype=torch.bfloat16,
-                                device=xyz.device))
+    if any(ch[0] != 3 + cf for ch in packed.chans):
+        raise ValueError(f"sa_msg_fused: layer 1 takes "
+                         f"{[ch[0] for ch in packed.chans]} channels, the "
+                         f"points carry 3 + {cf}")
+    if packed.device != xyz.device:
+        raise ValueError(f"sa_msg_fused: weights on {packed.device}, points "
+                         f"on {xyz.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for ts in packed.ws + packed.bs for t in ts):
+        raise RuntimeError("sa_msg_fused: the kernel wrapper is forward-only; "
+                           "call it under torch.no_grad()")
+    us = [torch.empty(b, n, pw[0].shape[1], dtype=torch.bfloat16,
+                      device=xyz.device) for pw in packed.ws]
+    outs = [torch.empty(b, m, ch[-1], dtype=torch.bfloat16, device=xyz.device)
+            for ch in packed.chans]
     P, I = _build.P, _build.I
+    _, ch_arr, w_arr, b_arr = packed.c_args
     r2 = (ctypes.c_float * nr)(*(radius_sq(r) for r in radii))
     ns_arr = (ctypes.c_int * nr)(*nsamples)
-    ch_arr = (ctypes.c_int * len(chans))(*chans)
-    ptrs = [(ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
-            for ts in (ws, bs, us, outs)]
+    ptrs = [w_arr, b_arr] + [
+        (ctypes.c_void_p * nr)(*(t.data_ptr() for t in ts))
+        for ts in (us, outs)]
     fn = _build.function("istnet_sa_fused",
                          [P, P, P, I, I, I, I, I, P, P, I, P, P, P, P, P, P])
     err = fn(xyz.data_ptr(), new_xyz.data_ptr(),

@@ -259,12 +259,12 @@ def test_chip_smoke_checks_the_bf16_kernels_at_the_path_shapes(monkeypatch):
         lambda u, k, f: (u.shape[1], k.shape[1], f.shape[-1], f.dtype)))
     monkeypatch.setattr(resnet_psp.ops, "fold_upsample_conv", spy(
         "fold_upsample", ops.fold_upsample_conv,
-        lambda x, k, b, e: (*x.shape[1:], k.shape[-1], x.dtype)))
+        lambda x, packed: (*x.shape[1:], packed.k.shape[-1], x.dtype)))
     monkeypatch.setattr(pointnet2_msg.ops, "sa_msg_fused", spy(
         "sa_fused", ops.sa_msg_fused,
         lambda r, ns, x, c, f, folded: (
             x.shape[1], c.shape[1], f.shape[-1],
-            tuple(w.shape[-1] for w, _ in folded[0]))))
+            folded.chans[0][1:])))
     old = precision.compute_dtype()
     try:
         precision.set_compute_dtype(torch.bfloat16)
@@ -279,3 +279,186 @@ def test_chip_smoke_checks_the_bf16_kernels_at_the_path_shapes(monkeypatch):
         "fp_interpolate": [(*s, bf) for s in chip_smoke.FP_SHAPES],
         "fold_upsample": [(*chip_smoke.FOLD_SHAPE, bf)],
         "sa_fused": list(chip_smoke.SA_FUSED_SHAPES)}
+
+
+# ---------------------------------------------------------------------------
+# Folded and packed weights: built once per module, never stale
+# ---------------------------------------------------------------------------
+
+SMALL = (32, 16, 8, 8)
+
+
+def _fresh_pack(sa):
+    from istnet_tpu_torch.nn.pointnet2_msg import _fold_shared_mlp
+    from istnet_tpu_torch.ops.sa_fused import pack_folded
+    return pack_folded([_fold_shared_mlp(mlp) for mlp in sa.mlps])
+
+
+def _same_pack(a, b):
+    return (a.chans == b.chans
+            and all(torch.equal(x, y) for ws, vs in zip(a.ws, b.ws)
+                    for x, y in zip(ws, vs))
+            and all(torch.equal(x, y) for bs, cs in zip(a.bs, b.bs)
+                    for x, y in zip(bs, cs)))
+
+
+def _load_scaled(sa):
+    sa.load_state_dict({k: v * 1.5 if v.is_floating_point() else v
+                        for k, v in sa.state_dict().items()})
+
+
+def _edit_weight(sa):
+    sa.mlps[0].layer0.conv.weight.mul_(2.0)
+
+
+def _edit_bias(sa):
+    sa.mlps[1].layer2.normlayer.bn.bias.add_(0.25)
+
+
+def _edit_running_var(sa):
+    sa.mlps[1].layer1.normlayer.bn.running_var.add_(1.0)
+
+
+def _train_eval_round_trip(sa):
+    # a write through .data moves no version counter; train() drops the
+    # cache whatever happened in between
+    sa.train()
+    sa.mlps[0].layer1.conv.weight.data.mul_(3.0)
+    sa.eval()
+
+
+def _to_float64(sa):
+    sa.double()
+
+
+def _replace_parameter(sa):
+    # a new Parameter object in the old one's place, nothing edited in place
+    conv = sa.mlps[0].layer1.conv
+    conv.weight = torch.nn.Parameter(conv.weight.detach() * 0.5)
+
+
+@pytest.mark.parametrize("change", [_load_scaled, _edit_weight, _edit_bias,
+                                    _edit_running_var, _train_eval_round_trip,
+                                    _to_float64, _replace_parameter])
+def test_sa_module_refolds_when_its_weights_change(change):
+    """``PointnetSAModuleMSG.folded`` packs once and hands the same object
+    back until a parameter or buffer it was made from changes."""
+    from istnet_tpu_torch.ops.sa_fused import PackedFolded
+    sa = build_model(sa_npoints=SMALL, seed=3).eval() \
+        .pts_cam_extractor.SA_modules[2]
+    with torch.no_grad():
+        first = sa.folded()
+        assert isinstance(first, PackedFolded)
+        assert sa.folded() is first                   # built once
+        assert _same_pack(first, _fresh_pack(sa))
+        change(sa)
+        second = sa.folded()
+        assert second is not first and sa.folded() is second
+        assert not _same_pack(second, first) or change is _to_float64
+        assert _same_pack(second, _fresh_pack(sa))    # never stale
+
+
+def test_derived_cache_keeps_its_sources_alive():
+    """An entry holds the tensors it was made from, so a tensor allocated
+    later can never pass for one of them by identity, address and version;
+    ``clear`` lets them go."""
+    import weakref
+
+    from istnet_tpu_torch.nn.layers import DerivedCache
+    cache = DerivedCache()
+    t = torch.zeros(3)
+    ref = weakref.ref(t)
+    assert cache.get([t], None, lambda: "first") == "first"
+    assert cache.get([t], None, lambda: "again") == "first"
+    twin = t.detach()                  # same storage and version, another object
+    assert cache.get([twin], None, lambda: "twin") == "twin"
+    del t, twin
+    cache.get([torch.zeros(3)], None, lambda: "next")
+    assert ref() is None               # the old sources went with their entry
+    t = torch.zeros(3)
+    ref = weakref.ref(t)
+    cache.get([t], None, lambda: "kept")
+    del t
+    assert ref() is not None
+    cache.clear()
+    assert ref() is None
+
+
+def test_sa_module_folds_anew_while_a_graph_is_recorded():
+    sa = build_model(sa_npoints=SMALL, seed=3).eval() \
+        .pts_cam_extractor.SA_modules[1]
+    with torch.enable_grad():
+        folded = sa.folded()
+    assert isinstance(folded, list) and folded[0][0][0].requires_grad
+    with torch.no_grad():
+        assert sa.folded() is sa.folded()
+
+
+def test_up_2_repacks_when_its_weights_or_the_policy_change():
+    from istnet_tpu_torch.ops.fold_upsample import PackedFold, pack_kernel
+    up = build_model(sa_npoints=SMALL, seed=3).eval().rgb_cam_extractor \
+        .model.up_2
+    old = precision.compute_dtype()
+    try:
+        with torch.no_grad():
+            first = up.packed()
+            assert isinstance(first, PackedFold) and up.packed() is first
+            assert first.km.dtype == torch.float32
+            precision.set_compute_dtype(torch.bfloat16)
+            half = up.packed()
+            assert half is not first and half.km.dtype == torch.bfloat16
+            assert half.epilogue.dtype == torch.float32
+            up.conv[1].weight.mul_(2.0)
+            third = up.packed()
+            assert third is not half and up.packed() is third
+            k = up.conv[1].weight.permute(2, 3, 1, 0).bfloat16()
+            assert torch.equal(third.km, pack_kernel(k))
+            up.conv[2].running_mean.add_(0.5)
+            assert torch.equal(up.packed().epilogue, up.epilogue())
+            up.train()
+            up.conv[3].weight.data.fill_(0.125)
+            up.eval()
+            assert up.packed().epilogue[4].eq(0.125).all()
+    finally:
+        precision.set_compute_dtype(old)
+
+
+def test_bf16_forward_with_the_caches_equals_the_forward_without(monkeypatch):
+    """The bf16 eval forward at B=2, N=128, 48 x 48 with the folded and
+    packed weights cached equals, bit for bit, the forward that folds and
+    packs on every call; and after new weights are loaded it equals a fresh
+    model's."""
+    from istnet_tpu_torch.nn.layers import DerivedCache
+    rng = np.random.RandomState(11)
+    inputs = make_inputs(2, 128, 48, seed=4)
+    inputs["pts"] = torch.from_numpy(
+        (rng.randn(2, 128, 3) * 0.03).astype(np.float32))
+
+    def run(model):
+        with torch.no_grad():
+            return model(inputs)
+
+    old = precision.compute_dtype()
+    precision.set_compute_dtype(torch.bfloat16)
+    try:
+        model = build_model(sa_npoints=SMALL, seed=2)
+        cached = [run(model), run(model)]             # build, then reuse
+        packs = [sa._folded._value for sa in model.pts_cam_extractor.SA_modules]
+        assert packs[0] is None and all(p is not None for p in packs[1:])
+        other = build_model(sa_npoints=SMALL, seed=6)
+        model.load_state_dict(other.state_dict())
+        reloaded = run(model)
+        monkeypatch.setattr(DerivedCache, "get",
+                            lambda self, tensors, extra, build: build())
+        model2 = build_model(sa_npoints=SMALL, seed=2)
+        plain_run, other_run = run(model2), run(other)
+        assert all(sa._folded._value is None
+                   for sa in model2.pts_cam_extractor.SA_modules)
+    finally:
+        precision.set_compute_dtype(old)
+    for k, want in plain_run.items():
+        assert torch.isfinite(want).all()
+        assert torch.equal(cached[0][k], want), k
+        assert torch.equal(cached[1][k], want), k
+        assert torch.equal(reloaded[k], other_run[k]), k
+        assert not torch.equal(reloaded[k], want), k

@@ -281,3 +281,90 @@ def test_bf16_cpu_tensors_take_the_plain_versions_and_launch_nothing():
                     plain.ball_query_group(*args, torch.bfloat16)):
         torch.testing.assert_close(g, p, rtol=0, atol=0)
     assert all(v == 0 for v in ops.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# The layouts the tensor-core kernels read (pure tensor code)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cf,channels", [(64, (12, 24, 40)), (0, (16, 16, 32)),
+                                         (5, (13,)), (128, (64, 64, 128)),
+                                         (7, (1, 17, 33, 250))])
+def test_pack_folded_round_trips_with_zero_padding(cf, channels):
+    """pack -> unpack gives the bf16-rounded folded weights and the biases
+    back; every width is padded to the MMA tile of 16 with zeros, layer 1
+    keeps its three xyz rows first and pads only its feature rows."""
+    rng = np.random.RandomState(cf + len(channels))
+    tf, _ = _both([_folded(rng, 3 + cf, channels) for _ in NS])
+    packed = sa_fused.pack_folded(tf)
+    assert sa_fused.pack_folded(packed) is packed
+    assert packed.chans == ((3 + cf, *channels),) * 2
+    ceil16 = lambda c: -(-c // 16) * 16
+    for layers, back, ws, bs in zip(tf, sa_fused.unpack_folded(packed),
+                                    packed.ws, packed.bs):
+        c_in = 3 + cf
+        for k, ((w, b), (w2, b2), wp, bp) in enumerate(zip(layers, back, ws,
+                                                           bs)):
+            c_out = w.shape[1]
+            rows = 3 + ceil16(cf) if k == 0 else ceil16(c_in)
+            assert wp.dtype == torch.bfloat16 and bp.dtype == torch.float32
+            assert wp.shape == (rows, ceil16(c_out))
+            assert bp.shape == (ceil16(c_out),)
+            assert torch.equal(w2, w.bfloat16().float())
+            assert torch.equal(b2, b)
+            assert not wp[c_in:].any() and not wp[:, c_out:].any()
+            assert not bp[c_out:].any()
+            c_in = c_out
+
+
+def test_sa_fused_plain_takes_the_packed_weights_bit_for_bit():
+    rng, xyz, cent, feats = _sa_inputs(21, cf=5)
+    tf, _ = _both([_folded(rng, 8, (12, 24, 40)) for _ in NS])
+    args = (RADII, NS, _t(xyz), _t(cent), _t(feats).bfloat16())
+    want = sa_fused.plain(*args, tf)
+    for got in (sa_fused.plain(*args, sa_fused.pack_folded(tf)),
+                ops.sa_msg_fused(*args, sa_fused.pack_folded(tf))):
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+
+
+def test_pack_folded_refuses_layers_that_do_not_chain():
+    rng = np.random.RandomState(3)
+    tf, _ = _both([_folded(rng, 8, (16, 16))])
+    broken = [(tf[0][0], (tf[0][1][0][:-1], tf[0][1][1]))]
+    with pytest.raises(ValueError, match="after 16"):
+        sa_fused.pack_folded(broken)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", [(256, 64), (10, 5), (24, 72), (3, 12),
+                                      (67, 40)])
+def test_pack_kernel_round_trips_with_zero_padding(cin, cout, dtype):
+    """The fold GEMM's operand: km[ci, (3 dy + dx) * coutp + c] = k[dy, dx,
+    ci, c], channels padded to 8, columns to the 192-wide block tile, depth
+    to 32 (float32) or 64 (bf16), zeros in all padding; in bf16 it is stored
+    transposed, depth along the rows' memory; unpack gives k back."""
+    rng = np.random.RandomState(cin + cout)
+    k = _t(rng.randn(3, 3, cin, cout).astype(np.float32)).to(dtype)
+    km = fold_upsample.pack_kernel(k)
+    coutp = -(-cout // 8) * 8
+    depth = 64 if dtype == torch.bfloat16 else 32
+    assert km.dtype == dtype and km.is_contiguous()
+    assert torch.equal(fold_upsample.unpack_kernel(km, cin, cout), k)
+    if dtype == torch.bfloat16:
+        km = km.t()
+    assert km.shape == (-(-cin // depth) * depth, -(-9 * coutp // 192) * 192)
+    assert torch.equal(km[5 % cin, (3 * 2 + 1) * coutp + cout - 1],
+                       k[2, 1, 5 % cin, cout - 1])
+    mask = torch.zeros(km.shape, dtype=torch.bool)
+    mask[:cin, :9 * coutp].view(cin, 9, coutp)[..., :cout] = True
+    assert not km[~mask].any()
+
+
+def test_fold_plain_takes_the_packed_fold_bit_for_bit():
+    x, k, b, ep = _fold_inputs(2, 6, 4, 10, 5)
+    args = [_t(a).bfloat16() for a in (x, k, b)] + [_t(ep)]
+    want = fold_upsample.plain(*args)
+    packed = fold_upsample.pack_fold(*args[1:])
+    assert torch.equal(fold_upsample.plain(args[0], packed), want)
+    assert torch.equal(ops.fold_upsample_conv(args[0], packed), want)

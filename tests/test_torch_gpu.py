@@ -8,7 +8,9 @@ no JAX, so that it runs on a machine without it:
 (``--noconftest``: the suite's conftest configures JAX.) Shapes are small
 and deliberately ragged (point counts that are not multiples of 32 or of a
 block, one radius, channel counts that are not multiples of 64, a known
-set too large for static shared memory). Indices and grouped values must be
+set too large for static shared memory; for the two tensor-core kernels also
+M = 1, ns off the 16-row tiles, widths off the MMA multiples, odd maps, B = 1).
+Indices and grouped values must be
 equal; the interpolation agrees to 1e-5 of the largest value and the fold to
 1e-4, float32 summation order apart. In bf16 (the bf16 policy's variants
 and the fused SA kernel) grouped values are still equal; the interpolation
@@ -99,7 +101,12 @@ def test_fp_interpolate_kernel(cuda, n, m, c):
 
 @pytest.mark.parametrize("b,h,w,cin,cout,with_ep", [(2, 12, 20, 24, 72, True),
                                                     (1, 5, 3, 10, 64, False),
-                                                    (2, 1, 4, 3, 5, True)])
+                                                    (2, 1, 4, 3, 5, True),
+                                                    (1, 7, 9, 33, 12, True),
+                                                    (3, 17, 5, 40, 193, False),
+                                                    (1, 9, 11, 300, 64, True),
+                                                    (1, 1, 1, 8, 8, True),
+                                                    (1, 48, 48, 256, 64, True)])
 def test_fold_upsample_kernel(cuda, b, h, w, cin, cout, with_ep):
     rng = np.random.RandomState(3)
     x = _f32(rng.randn(b, h, w, cin), cuda)
@@ -112,6 +119,10 @@ def test_fold_upsample_kernel(cuda, b, h, w, cin, cout, with_ep):
     want = fold_upsample.plain(x, k, bias, ep)
     assert got.shape == (b, 2 * h, 2 * w, cout)
     assert (got - want).abs().max() <= 1e-4 * max(1.0, want.abs().max())
+    # the constants packed ahead give the same bits, launch after launch
+    packed = fold_upsample.pack_fold(k, bias, ep)
+    assert torch.equal(ops.fold_upsample_conv(x, packed), got)
+    assert torch.equal(ops.fold_upsample_conv(x, k, bias, ep), got)
 
 
 def test_wrappers_refuse_grad_requiring_inputs(cuda):
@@ -125,6 +136,18 @@ def test_wrappers_refuse_grad_requiring_inputs(cuda):
         dispatch.wrapper("fps")(xyz, 8)
     idx = ops.furthest_point_sample(xyz, 8)
     assert not idx.requires_grad and ops.launch_counts()["fps"] == 2
+    # the fused SA stage's folded weights count as inputs too
+    pts = xyz.detach()
+    feats = torch.zeros(1, 64, 8, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(11, 16, device=cuda, requires_grad=True)
+    folded = [[(w, torch.zeros(16, device=cuda))]]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        dispatch.wrapper("sa_fused")((0.1,), (16,), pts, pts[:, :8], feats,
+                                     folded)
+    with torch.no_grad():
+        dispatch.wrapper("sa_fused")((0.1,), (16,), pts, pts[:, :8], feats,
+                                     folded)
+    assert ops.launch_counts()["sa_fused"] == 1
 
 
 def test_dispatch_ops_are_differentiable_on_the_card(cuda):
@@ -208,22 +231,35 @@ def _folded(rng, c_in, channels, device):
     (200, 37, 6, (13, 20, 37), (5, 7)),     # widths and ns off every tile
     (512, 96, 0, (16, 16, 32), (16, 32)),   # C = 3, no features (stage 1)
     (128, 20, 4, (32, 64, 64, 128), (64,)),  # depth 4, one radius, ns 64
+    (64, 1, 8, (16, 32), (16, 32)),         # M = 1: half a two-centroid item
+    (150, 33, 16, (40, 72), (1, 17)),       # ns 1 and 17: rows padded to 16, 32
+    (90, 7, 3, (8, 8, 8, 8), (33, 64)),     # depth 4, 64-row items, two radii
+    (128, 64, 256, (128, 128, 256), (16, 32)),  # SA stage 4's widths
+    (700, 129, 24, (200,), (3,)),           # one wide layer, one radius
+    (40, 5, 0, (5, 3), (2, 48)),            # C = 3, widths under one tile
 ])
-def test_sa_fused_kernel(cuda, n, m, cf, channels, nsamples):
+@pytest.mark.parametrize("b", [2, 1])
+def test_sa_fused_kernel(cuda, b, n, m, cf, channels, nsamples):
     rng = np.random.RandomState(n + m)
-    xyz = _f32(rng.randn(2, n, 3) * 0.2, cuda)
-    cent = _f32(rng.randn(2, m, 3) * 0.2, cuda)
-    cent[1, : m // 3] += 50.0                 # rows with no hit
-    feats = _bf16(rng.randn(2, n, cf), cuda) if cf else None
+    xyz = _f32(rng.randn(b, n, 3) * 0.2, cuda)
+    cent = _f32(rng.randn(b, m, 3) * 0.2, cuda)
+    cent[b - 1, : m // 3] += 50.0             # rows with no hit
+    feats = _bf16(rng.randn(b, n, cf), cuda) if cf else None
     radii = (0.15, 0.4)[:len(nsamples)]
     folded = [_folded(rng, 3 + cf, channels, cuda) for _ in nsamples]
     got = ops.sa_msg_fused(radii, nsamples, xyz, cent, feats, folded)
     want = sa_fused.plain(radii, nsamples, xyz, cent, feats, folded)
     assert ops.launch_counts()["sa_fused"] == 1
     for g, w in zip(got, want):
-        assert g.dtype == torch.bfloat16 and g.shape == (2, m, channels[-1])
+        assert g.dtype == torch.bfloat16 and g.shape == (b, m, channels[-1])
         err = (g.float() - w.float()).abs().max().item()
         assert err <= 2e-2 * max(1.0, w.float().abs().max().item())
+    # no atomics: the weights packed ahead, and a second launch, same bits
+    packed = sa_fused.pack_folded(folded)
+    again = ops.sa_msg_fused(radii, nsamples, xyz, cent, feats, packed)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    again = ops.sa_msg_fused(radii, nsamples, xyz, cent, feats, folded)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
 def test_sa_fused_kernel_identity_mlp_is_the_grouping(cuda):
@@ -272,7 +308,13 @@ def test_fp_interpolate_kernel_bf16(cuda, n, m, c):
 
 @pytest.mark.parametrize("b,h,w,cin,cout,with_ep", [(2, 12, 20, 24, 72, True),
                                                     (1, 5, 3, 10, 64, False),
-                                                    (2, 48, 48, 256, 64, True)])
+                                                    (2, 48, 48, 256, 64, True),
+                                                    (2, 1, 4, 3, 5, True),
+                                                    (1, 7, 9, 33, 12, True),
+                                                    (3, 17, 5, 40, 193, False),
+                                                    (1, 9, 11, 300, 64, True),
+                                                    (2, 6, 6, 520, 16, True),
+                                                    (1, 1, 1, 8, 8, True)])
 def test_fold_upsample_kernel_bf16(cuda, b, h, w, cin, cout, with_ep):
     rng = np.random.RandomState(6)
     x = _bf16(rng.randn(b, h, w, cin), cuda)
@@ -286,6 +328,9 @@ def test_fold_upsample_kernel_bf16(cuda, b, h, w, cin, cout, with_ep):
     assert got.dtype == torch.bfloat16 and got.shape == (b, 2 * h, 2 * w, cout)
     err = (got.float() - want.float()).abs().max()
     assert err <= 1e-2 * max(1.0, want.float().abs().max())
+    packed = fold_upsample.pack_fold(k, bias, ep)
+    assert torch.equal(ops.fold_upsample_conv(x, packed), got)
+    assert torch.equal(ops.fold_upsample_conv(x, k, bias, ep), got)
 
 
 def test_card_bf16_forward_matches_cpu_bf16_forward(cuda):

@@ -222,7 +222,7 @@ def test_chip_smoke_checks_the_kernels_at_the_path_shapes(monkeypatch):
         lambda u, k, f: (u.shape[1], k.shape[1], f.shape[-1])))
     monkeypatch.setattr(resnet_psp.ops, "fold_upsample_conv", spy(
         "fold_upsample", ops.fold_upsample_conv,
-        lambda x, k, b, e: (*x.shape[1:], k.shape[-1])))
+        lambda x, packed: (*x.shape[1:], packed.k.shape[-1])))
     with torch.no_grad():
         build_model()(make_inputs(1))
     assert seen == {"fps": list(chip_smoke.FPS_SHAPES),
