@@ -24,8 +24,11 @@ then for each compute policy, float32 and bf16 (the deployment precision):
 6. timings: the B=32 forward and its sections, each kernel against its
    plain version (CUDA events after warmup), the fused SA kernel and the
    fold also stage by stage (U and the main kernel; the GEMM and the
-   interpolation); under bf16 also the fused SA kernel at stage 1 against
-   the unfused stage 1;
+   interpolation), FPS as device us a call and ns a step, the grouping as
+   device us a call beside kernel 8's query of the same lists and
+   ``torch.index_select`` of the same rows (a yardstick of a plain gather,
+   never in ``library_ms``), each summed over the path; under bf16 also
+   the fused SA kernel at stage 1 against the unfused stage 1;
 
 then the float32 train step (``train/train_state.py``):
 
@@ -35,6 +38,9 @@ then the float32 train step (``train/train_state.py``):
    against its plain version at B=24 on the step's inputs: a train batch's
    points through the camera extractor's stages and its NOCS points
    through the world extractor's, every SA and FP stage with its radii;
+   then each kernel's ms per step against its plain version's, the two
+   scatters also against PyTorch's ``index_add_`` on the same rows (a
+   yardstick that the port never calls);
 8. train steps: the full-width model at B=24, N=1024, 192x192 takes 3 steps
    of the default recipe and 2 of the frozen one; each step's loss and
    gradients are finite, the trained parameters move, every BatchNorm's
@@ -44,10 +50,7 @@ then the float32 train step (``train/train_state.py``):
    port's CPU path (same weights and batch, dropout off, B=2, small
    npoints): the loss, the gradients and the updated state;
 10. train timings: median step ms over 10 steps with its forward, backward
-   and update split (CUDA events), peak memory, and each kernel's ms per
-   step against its plain version's, from phase 7's cases; the two
-   scatters also against PyTorch's ``index_add_`` on the same rows (a
-   yardstick that the port never calls).
+   and update split (CUDA events), peak memory.
 
 then the serving path from a raw frame (``eval/test_loop.py``), under the
 float32 policy and, for 11-13, the bf16 one too:
@@ -804,10 +807,12 @@ def device_us(fn, iters: int = 10) -> dict:
     events): what the card spends, whatever the host takes to launch it.
     The trace holds ``iters + 1`` calls; the profiler now and then loses
     the first events after its start, so the first call is there to be
-    lost. A name's last ``iters`` rounds of events, in time order, are its
-    launches of call after call; each launch counts with its median over
-    the calls, so that one event with a broken time range does not move
-    the reading. A name with too few events for that reads NaN."""
+    lost. A name's launches a call are its event count over the calls,
+    rounded (a lost or a stray event leaves it as it is); its last
+    ``iters`` rounds of events, in time order, are its launches of call
+    after call; each launch counts with its median over the calls, so that
+    one event with a broken time range does not move the reading. A name
+    with too few events for that reads NaN (PERF.md section 7)."""
     import statistics
 
     import torch
@@ -827,22 +832,69 @@ def device_us(fn, iters: int = 10) -> dict:
                 (e.time_range.start, e.time_range.end - e.time_range.start))
     sums = {}
     for name, events in spans.items():
-        per_call = -(-len(events) // (iters + 1))
+        per_call = max(1, round(len(events) / (iters + 1)))
         us = [d for _, d in sorted(events)][-per_call * iters:]
         sums[name] = float("nan") if len(us) < per_call * iters else sum(
             statistics.median(us[k::per_call]) for k in range(per_call))
     return sums
 
 
-def _stage_split(name: str, kern, args, tag: str) -> None:
-    """The fused SA kernel (U, then the main kernel) and the fold (GEMM,
-    then interpolation) stage by stage, as device time: by events a call of
-    these wrappers can cost more host time than card time."""
+def gather_yardstick(args):
+    """``torch.index_select`` of the rows a grouping case copies, with the
+    indices (the plain query's) given ahead: what a plain gather of these
+    bytes costs on the card. It leaves out the query and the centroid
+    subtraction, so it is no library call of the same function and never
+    goes into ``library_ms``; the port never calls it."""
+    import torch
+
+    from istnet_tpu_torch.ops import pointnet2 as plain
+    radii, nsamples, xyz, new_xyz, feats = args[:5]
+    out_dtype = args[5] if len(args) > 5 else torch.float32
+    b, n, _ = xyz.shape
+    rows = xyz if feats is None else torch.cat([xyz, feats.float()], dim=-1)
+    table = rows.to(out_dtype).reshape(b * n, -1)
+    base = torch.arange(b, device=xyz.device)[:, None, None] * n
+    flat = [(i.long() + base).reshape(-1)
+            for i in plain.ball_query_multi(radii, nsamples, xyz, new_xyz)]
+    return lambda: [torch.index_select(table, 0, f) for f in flat]
+
+
+def _device_total(fn) -> float:
+    """Device us of one call summed over its kernels, NaN where the trace
+    held none of them."""
+    return sum(device_us(fn).values()) or float("nan")
+
+
+def _stage_split(name: str, kern, args, tag: str) -> dict:
+    """Device time of the kernels read part by part (by events a call of
+    these wrappers can cost more host time than card time): the fused SA
+    kernel (U, then the main kernel) and the fold (GEMM, then
+    interpolation) stage by stage; FPS as ns a step; the grouping beside
+    kernel 8 (the query alone, its lists stored as indices) and the
+    ``index_select`` yardstick. Returns the device us read."""
+    from istnet_tpu_torch.ops import dispatch
     if name in ("sa_fused", "fold_upsample"):
         sums = device_us(lambda: kern(*args))
         parts = ", ".join(f"{k} {v:.1f}" for k, v in sorted(sums.items()))
         print(f"[timings] {tag}{name} {_label(name, args)} device us a call "
               f"by stage: {parts or 'not measured (no device event)'}")
+        return {}
+    if name == "fps":
+        us = _device_total(lambda: kern(*args))
+        print(f"[timings] {tag}fps {_label(name, args)}: device {us:.1f} us a "
+              f"call, {us * 1e3 / max(1, args[1] - 1):.0f} ns a step")
+        return {"device": us}
+    if name == "ball_query_group":
+        query = dispatch.wrapper("ball_query")
+        us = _device_total(lambda: kern(*args))
+        q_us = _device_total(lambda: query(*args[:4]))
+        y_us = _device_total(gather_yardstick(args))
+        print(f"[timings] {tag}ball_query_group {_label(name, args)}: device "
+              f"{us:.1f} us a call; kernel 8's query of the same lists "
+              f"{q_us:.1f} us; index_select of the same rows {y_us:.1f} us "
+              f"(yardstick)")
+        return {"device": us, "query": q_us, "index_select": y_us}
+    return {}
 
 
 def time_kernels(cases, tag: str = "") -> dict:
@@ -858,6 +910,7 @@ def time_kernels(cases, tag: str = "") -> dict:
         kern = dispatch.wrapper(name)
         k_ms = p_ms = l_ms = bytes_ms = ops_ms = least = 0.0
         lib = None
+        split: dict = {}
         for args, on_path in case_list:
             km = cuda_ms(lambda: kern(*args), iters=20)
             pm = cuda_ms(lambda: mod.plain(*args), iters=3, warmup=1)
@@ -871,13 +924,17 @@ def time_kernels(cases, tag: str = "") -> dict:
                   f"{km:.4f} ms, plain {pm:.4f} ms{lib_note}, bound "
                   f"{max(by, op):.5f} ms (bytes {by:.5f}, operations "
                   f"{op:.5f}){note}")
-            _stage_split(name, kern, args, tag)
+            for k, v in _stage_split(name, kern, args, tag).items():
+                split[k] = split.get(k, 0.0) + v * on_path
             k_ms += km * on_path
             p_ms += pm * on_path
             l_ms += (lm or 0.0) * on_path
             bytes_ms += by * on_path
             ops_ms += op * on_path
             least += max(by, op) * on_path
+        if split:
+            print(f"[timings] {tag}{name} device us a pass of the path: "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
         times[name] = (k_ms, p_ms, least,
                        "bytes" if bytes_ms >= ops_ms else "operations",
                        l_ms if lib is not None else None)
@@ -1560,10 +1617,10 @@ def main() -> int:
     with policy(torch.float32):
         train_cases = train_kernel_cases(device)
         errs_t = phase_kernels(train_cases, tag="train ")
+        times_t = time_kernels(train_cases, "train ")
         counts_t = phase_train_steps(device)
         phase_train_reference(device)
         phase_train_timings(device)
-        times_t = time_kernels(train_cases, "train ")
     record("train", "float32", errs_t, counts_t, times_t, list(train_cases))
 
     print(json.dumps({"kernels": kernels}))

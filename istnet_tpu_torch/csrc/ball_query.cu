@@ -49,8 +49,8 @@ ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ new_x
   const float* cen = new_xyz + (static_cast<size_t>(b) * m + j) * 3;
   int* const idx[kMaxRadii] = {s_idx[warp][0], s_idx[warp][1]};
   int cnt[kMaxRadii];
-  istnet::warp_ball_query(pts, n, cen[0], cen[1], cen[2], lists.r2, lists.ns,
-                          lists.count, idx, cnt);
+  istnet::warp_ball_query<false>(nullptr, pts, n, cen[0], cen[1], cen[2],
+                                 lists.r2, lists.ns, lists.count, idx, cnt);
   __syncwarp();
 
   for (int r = 0; r < lists.count; ++r) {

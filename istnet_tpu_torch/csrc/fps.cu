@@ -7,131 +7,135 @@
 // that it equals the plain PyTorch version bit for bit); each step takes
 // the argmax, ties to the lowest index.
 //
-// What bounds it: the npoint loop is sequential and every step ends in a
-// block-wide argmax, so the cost is the latency of npoint reductions and
-// barriers, not bytes or FLOPs (a cloud is 12 KB). Design: one block per
-// cloud; the cloud sits in shared memory and each thread keeps its points
-// and their running minima in registers; a step is one distance update,
-// a warp-shuffle argmax over (value, index) pairs, and one cross-warp pass
-// by warp 0. B=32 clouds fill only 32 of the 132 SMs; several clouds per
-// SM or a cluster per cloud are for a later change.
+// What bounds it: the latency of one step. The npoint loop is sequential
+// (each step needs the point the step before chose) and a cloud is 12 KB,
+// so bytes and FLOPs are far below the card's rates; a forward is 956
+// dependent steps. Design, per step:
+// - one block a cloud, its threads sized to N (the table in
+//   istnet_fps): one warp at N <= 256, so stages 3-4 have no block
+//   barrier at all; 2, 4, 8 warps at N <= 512, 1024, 2048, each thread
+//   holding 8 points and their running minima in registers;
+// - a thread's argmax is a tree over its points (lower index on the left,
+//   so ties keep it); the warp's is two redux.sync: the max of the minima's
+//   bits (d2 >= 0, so its bits order as unsigned integers), then the min
+//   index among the lanes that hold it;
+// - across warps, one barrier a step: each warp writes its (bits, index)
+//   into a shared array double-buffered by step parity, and every thread
+//   reduces the WARPS entries itself (no broadcast, no second barrier);
+// - the chosen point's coordinates come from the cloud's copy in shared
+//   memory, one 16-byte broadcast load.
+// Padding points (index >= n) hold a minimum of 0 and an index above every
+// real one, so they never win: when every real minimum is 0, a real point
+// ties them at a lower index.
 #include <cuda_runtime.h>
-
-#include <cfloat>
-#include <climits>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-// (v, i) beats (bv, bi): larger value, or the same value at a lower index.
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-template <int PER>
-__global__ void __launch_bounds__(kThreads)
+template <int WARPS, int PER>
+__global__ void __launch_bounds__(WARPS * 32)
 fps_kernel(const float* __restrict__ xyz, int n, int npoint,
            int* __restrict__ out) {
-  extern __shared__ float s_xyz[];  // 3 * n
-  __shared__ float s_val[kWarps];
-  __shared__ int s_idx[kWarps];
-  __shared__ int s_best;
+  constexpr int kThreads = WARPS * 32;
+  extern __shared__ float4 s_pts[];           // n points, w unused
+  __shared__ uint2 s_win[2][WARPS];           // (bits, index) per warp
 
   const float* cloud = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
   int* o = out + static_cast<size_t>(blockIdx.x) * npoint;
-  for (int t = threadIdx.x; t < 3 * n; t += kThreads) s_xyz[t] = cloud[t];
-  __syncthreads();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 
   float px[PER], py[PER], pz[PER], mind[PER];
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
-    const int i = threadIdx.x + k * kThreads;
-    const bool real = i < n;
-    px[k] = real ? s_xyz[3 * i] : 0.f;
-    py[k] = real ? s_xyz[3 * i + 1] : 0.f;
-    pz[k] = real ? s_xyz[3 * i + 2] : 0.f;
-    mind[k] = 1e10f;
+    const int i = tid + k * kThreads;
+    px[k] = py[k] = pz[k] = 0.f;
+    mind[k] = 0.f;                            // padding: never wins
+    if (i < n) {
+      px[k] = cloud[3 * i];
+      py[k] = cloud[3 * i + 1];
+      pz[k] = cloud[3 * i + 2];
+      mind[k] = 1e10f;
+      s_pts[i] = make_float4(px[k], py[k], pz[k], 0.f);
+    }
   }
-  if (threadIdx.x == 0) o[0] = 0;
+  if (tid == 0) o[0] = 0;
+  __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int last = 0;
+  float4 last = s_pts[0];
   for (int j = 1; j < npoint; ++j) {
-    const float lx = s_xyz[3 * last];
-    const float ly = s_xyz[3 * last + 1];
-    const float lz = s_xyz[3 * last + 2];
-    float bv = -FLT_MAX;
-    int bi = INT_MAX;
+    unsigned cb[PER];
+    unsigned ci[PER];
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      if (i < n) {
-        const float dx = __fsub_rn(px[k], lx);
-        const float dy = __fsub_rn(py[k], ly);
-        const float dz = __fsub_rn(pz[k], lz);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
-        mind[k] = fminf(mind[k], d2);
-        if (better(mind[k], i, bv, bi)) {
-          bv = mind[k];
-          bi = i;
-        }
+      const float dx = __fsub_rn(px[k], last.x);
+      const float dy = __fsub_rn(py[k], last.y);
+      const float dz = __fsub_rn(pz[k], last.z);
+      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                 __fmul_rn(dz, dz));
+      mind[k] = fminf(mind[k], d2);
+      cb[k] = __float_as_uint(mind[k]);
+      ci[k] = static_cast<unsigned>(tid + k * kThreads);
+    }
+    // the thread's argmax: the right side wins only when strictly larger
+#pragma unroll
+    for (int step = 1; step < PER; step <<= 1) {
+#pragma unroll
+      for (int k = 0; k + step < PER; k += 2 * step) {
+        const bool right = cb[k + step] > cb[k];
+        cb[k] = right ? cb[k + step] : cb[k];
+        ci[k] = right ? ci[k + step] : ci[k];
       }
     }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      s_val[warp] = bv;
-      s_idx[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < kWarps ? s_val[lane] : -FLT_MAX;
-      bi = lane < kWarps ? s_idx[lane] : INT_MAX;
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        s_best = bi;
-        o[j] = bi;
+    const unsigned wmax = __reduce_max_sync(0xffffffffu, cb[0]);
+    unsigned win = __reduce_min_sync(0xffffffffu,
+                                     cb[0] == wmax ? ci[0] : 0xffffffffu);
+    if constexpr (WARPS > 1) {
+      uint2* slot = s_win[j & 1];
+      if (lane == 0) slot[warp] = make_uint2(wmax, win);
+      __syncthreads();
+      uint2 best = slot[0];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) {
+        const uint2 e = slot[w];
+        // warps hold interleaved indices: compare the index on a tie
+        if (e.x > best.x || (e.x == best.x && e.y < best.y)) best = e;
       }
+      win = best.y;
     }
-    __syncthreads();
-    last = s_best;
+    if (tid == 0) o[j] = static_cast<int>(win);
+    last = s_pts[win];
   }
+}
+
+template <int WARPS, int PER>
+cudaError_t launch(const float* xyz, int b, int n, int npoint, int* out,
+                   cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(n) * sizeof(float4);
+  fps_kernel<WARPS, PER><<<b, WARPS * 32, smem, s>>>(xyz, n, npoint, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// xyz (b, n, 3) f32 contiguous -> out (b, npoint) int32. n <= 8 * 256.
+// xyz (b, n, 3) f32 contiguous -> out (b, npoint) int32, n <= 2048.
+// Threads a cloud by n: (warps, points a thread).
 extern "C" int istnet_fps(const float* xyz, int b, int n, int npoint, int* out,
                           void* stream) {
-  const size_t smem = static_cast<size_t>(3) * n * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per = (n + kThreads - 1) / kThreads;
+  if (n < 1 || n > 2048) return static_cast<int>(cudaErrorInvalidValue);
   if (b <= 0 || npoint <= 0) return static_cast<int>(cudaSuccess);
-  if (per <= 1) {
-    fps_kernel<1><<<b, kThreads, smem, s>>>(xyz, n, npoint, out);
-  } else if (per <= 2) {
-    fps_kernel<2><<<b, kThreads, smem, s>>>(xyz, n, npoint, out);
-  } else if (per <= 4) {
-    fps_kernel<4><<<b, kThreads, smem, s>>>(xyz, n, npoint, out);
-  } else if (per <= 8) {
-    fps_kernel<8><<<b, kThreads, smem, s>>>(xyz, n, npoint, out);
+  cudaError_t e;
+  if (n <= 128) {
+    e = launch<1, 4>(xyz, b, n, npoint, out, s);
+  } else if (n <= 256) {
+    e = launch<1, 8>(xyz, b, n, npoint, out, s);
+  } else if (n <= 512) {
+    e = launch<2, 8>(xyz, b, n, npoint, out, s);
+  } else if (n <= 1024) {
+    e = launch<4, 8>(xyz, b, n, npoint, out, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    e = launch<8, 8>(xyz, b, n, npoint, out, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }

@@ -381,7 +381,7 @@ sa_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz, int 
       const float cx = cen[0], cy = cen[1], cz = cen[2];
       int* const idx[kMaxRadii] = {s_idx + q * R.nsp, s_idx + q * R.nsp};
       int cnt[kMaxRadii];
-      istnet::warp_ball_query(pts, n, cx, cy, cz, r2, nsa, 1, idx, cnt);
+      istnet::warp_ball_query<false>(nullptr, pts, n, cx, cy, cz, r2, nsa, 1, idx, cnt);
       __syncwarp();
       const int hits = min(cnt[0], R.ns);
       const int first = hits > 0 ? idx[0][0] : 0;

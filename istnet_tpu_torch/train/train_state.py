@@ -1,9 +1,11 @@
 """The optimizer and the train step (counterpart of
 ``istnet_tpu/train/train_state.py``).
 
-- Adam with torch's default betas and eps: the reference's solver never
-  passes the config's (``istnet_tpu/train/train_state.py:56-61``). Its LR is
-  set from the cyclic schedule at the step count before each update, the
+- Adam with torch's default betas and eps unless ``adam_betas`` /
+  ``adam_eps`` say otherwise: the reference's solver never passes the
+  config's ``betas`` / ``eps`` keys, and its ``make_optimizer`` reads only
+  these two overrides (``istnet_tpu/train/train_state.py:56-75``). Its LR
+  is set from the cyclic schedule at the step count before each update, the
   count optax's schedule sees.
 - The frozen recipe leaves ``world_enhancer.*`` out of the optimizer (JAX
   zeroes that subtree's updates with ``optax.set_to_zero``); its BNs still
@@ -42,6 +44,8 @@ class TrainConfig:
     bn_decay: float = 0.5
     decay_step: int = 4000
     bnm_clip: float = 0.01
+    adam_betas: tuple[float, float] = (0.9, 0.999)
+    adam_eps: float = 1e-8
 
     @classmethod
     def frozen(cls, **kw) -> "TrainConfig":
@@ -71,6 +75,7 @@ def make_optimizer(model: torch.nn.Module,
               if not (cfg.freeze_world_enhancer
                       and name.startswith("world_enhancer."))]
     return torch.optim.Adam(params, lr=cfg.lr(0),
+                            betas=tuple(cfg.adam_betas), eps=cfg.adam_eps,
                             weight_decay=cfg.weight_decay)
 
 

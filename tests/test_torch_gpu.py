@@ -75,6 +75,88 @@ def test_fps_kernel(cuda, n, npoint):
     assert ops.launch_counts()["fps"] == 1
 
 
+@pytest.mark.parametrize("npoint", ["n", 1, 64])
+@pytest.mark.parametrize("n", [33, 128, 256, 512, 1000, 1024, 2048])
+def test_fps_kernel_every_branch(cuda, n, npoint):
+    """Every (warps, points a thread) branch of the kernel's table, with
+    npoint = N (the last steps pick points whose minimum is already 0) and
+    npoint = 1."""
+    npoint = n if npoint == "n" else npoint
+    xyz = _f32(np.random.RandomState(n + 1).randn(2, n, 3) * 0.1, cuda)
+    assert torch.equal(ops.furthest_point_sample(xyz, npoint),
+                       plain.furthest_point_sample(xyz, npoint))
+
+
+@pytest.mark.parametrize("n", [128, 1024, 2048])
+def test_fps_kernel_ties(cuda, n):
+    """Duplicated points (ties between copies go to the lower index) and a
+    cloud whose minima are all equal (every pick is index 0)."""
+    rng = np.random.RandomState(5)
+    distinct = rng.randn(2, 24, 3) * 0.1
+    xyz = _f32(distinct[:, rng.randint(0, 24, n)], cuda)
+    got = ops.furthest_point_sample(xyz, 40)
+    assert torch.equal(got, plain.furthest_point_sample(xyz, 40))
+    assert (got[:, 24:] == 0).all()       # every minimum 0: index 0 wins
+    same = torch.zeros(2, n, 3, device=cuda)
+    assert torch.equal(ops.furthest_point_sample(same, 9),
+                       torch.zeros(2, 9, dtype=torch.int32, device=cuda))
+
+
+_BQG_RADII = [((0.1,), (1,)), ((0.05, 0.15), (16, 32)), ((0.1,), (64,)),
+              ((0.08, 0.2), (64, 16))]
+_BQG_DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("feat_dtype,out_dtype", _BQG_DTYPES)
+@pytest.mark.parametrize("radii,nsamples", _BQG_RADII)
+@pytest.mark.parametrize("cf", [0, 7, 64, 256, 600, 2000, 3000])
+def test_ball_query_group_kernel_shapes(cuda, cf, radii, nsamples, feat_dtype,
+                                        out_dtype):
+    """C in {0, 7, 64, 256} (16-byte feature loads or scalar ones), 600
+    (rows too wide for vector-store chunks in shared memory), 2000 (one row
+    a chunk in bf16 output; in f32 the row does not fit a warp's buffer:
+    the global-memory kernel) and 3000 (that kernel in both), ns in
+    {1, 16, 32, 64} (vector or scalar stores, one chunk or several), one and
+    two radii, centroids with no hit, B * M = 90 (no multiple of the 8
+    centroids a block), every feature / output dtype pair: equal to the plain
+    version (bf16 output: its f32 result cast once)."""
+    rng = np.random.RandomState(cf + nsamples[0])
+    xyz = _f32(rng.randn(2, 300, 3) * 0.1, cuda)
+    cent = xyz[:, :45] + _f32(rng.randn(2, 45, 3) * 0.01, cuda)
+    cent[1, :10] += 50.0                      # rows with no hit: point 0
+    feats = _f32(rng.randn(2, 300, cf), cuda).to(feat_dtype) if cf else None
+    args = (radii, nsamples, xyz, cent.contiguous(), feats)
+    got = ops.ball_query_group(*args, out_dtype=out_dtype)
+    want = plain.ball_query_group(*args, out_dtype)
+    assert ops.launch_counts()["ball_query_group"] == 1
+    for g, w in zip(got, want):
+        assert g.dtype == out_dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [300, 2500])
+@pytest.mark.parametrize("feat_dtype", [torch.float32, torch.bfloat16])
+def test_ball_query_group_kernel_large_cloud_and_unaligned_features(
+        cuda, feat_dtype, n):
+    """N = 300 (the cloud staged in shared memory) and 2500 (too large to
+    stage: the global-memory kernel), with a feature tensor whose data
+    starts 8 bytes off a 16-byte boundary (scalar feature loads): still
+    equal to the plain version."""
+    rng = np.random.RandomState(12)
+    xyz = _f32(rng.randn(2, n, 3) * 0.1, cuda)
+    cent = xyz[:, :37].contiguous()
+    flat = torch.zeros(2 * n * 64 + 8, device=cuda, dtype=feat_dtype)
+    feats = flat[8 // flat.element_size():][:2 * n * 64].view(2, n, 64)
+    feats.copy_(_f32(rng.randn(2, n, 64), cuda))
+    assert feats.data_ptr() % 16 != 0
+    for out_dtype in (torch.float32, torch.bfloat16):
+        args = ((0.02, 0.05), (16, 32), xyz, cent, feats)
+        for g, w in zip(ops.ball_query_group(*args, out_dtype=out_dtype),
+                        plain.ball_query_group(*args, out_dtype)):
+            assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("radii,nsamples,cf", [((0.05, 0.15), (16, 32), 7),
                                                ((0.1,), (64,), 0)])
 def test_ball_query_group_kernel(cuda, radii, nsamples, cf):

@@ -33,18 +33,30 @@ def _t(a):
 # FPS (kernel 1)
 # ---------------------------------------------------------------------------
 
-def test_fps_matches_pallas_xla_and_golden():
+@pytest.mark.parametrize("n,npoint,duplicated", [
+    (128, 32, False),
+    (33, 33, False),        # N off the 128-lane tiling: XLA and golden only
+    (1000, 64, False),
+    (2048, 64, False),      # the 2048-point configuration
+    (256, 64, True),        # 20 distinct points: ties between the copies
+])
+def test_fps_matches_pallas_xla_and_golden(n, npoint, duplicated):
     from istnet_tpu.ops.fps_pallas import furthest_point_sample_pallas
 
-    xyz = (np.random.RandomState(0).randn(4, 128, 3) * 0.3).astype(np.float32)
-    got = plain.furthest_point_sample(_t(xyz), 32).numpy()
+    rng = np.random.RandomState(n)
+    xyz = (rng.randn(4, n, 3) * 0.3).astype(np.float32)
+    if duplicated:
+        xyz = xyz[:, rng.randint(0, 20, n)]
+    got = plain.furthest_point_sample(_t(xyz), npoint).numpy()
     assert got.dtype == np.int32
+    if n % 128 == 0:        # the Pallas kernel takes whole lane tiles only
+        np.testing.assert_array_equal(
+            got, np.asarray(furthest_point_sample_pallas(
+                jnp.asarray(xyz), npoint, interpret=True)))
     np.testing.assert_array_equal(
-        got, np.asarray(furthest_point_sample_pallas(jnp.asarray(xyz), 32,
-                                                     interpret=True)))
-    np.testing.assert_array_equal(
-        got, np.asarray(xla_ops.furthest_point_sample(jnp.asarray(xyz), 32)))
-    np.testing.assert_array_equal(got, golden.fps_golden(xyz, 32))
+        got, np.asarray(xla_ops.furthest_point_sample(jnp.asarray(xyz),
+                                                      npoint)))
+    np.testing.assert_array_equal(got, golden.fps_golden(xyz, npoint))
     assert np.all(got[:, 0] == 0)                     # starts at index 0
 
 
@@ -68,32 +80,44 @@ def _bq_inputs(seed=3, n=128, m=128, c=5):
     return xyz, cent, feats
 
 
-@pytest.mark.parametrize("with_features", [False, True])
-def test_ball_query_group_matches_pallas_and_xla(with_features):
+@pytest.mark.parametrize("with_features,c,nsamples,bf16", [
+    (False, 5, (4, 8), False),
+    (True, 5, (4, 8), False),
+    (True, 7, (64, 16), True),  # C = 7, ns = 64, bf16 features and output
+])
+def test_ball_query_group_matches_pallas_and_xla(with_features, c, nsamples,
+                                                 bf16):
     from istnet_tpu.ops.ball_query_pallas import (
         ball_query_group_pallas,
         ball_query_group_pallas_t,
     )
 
-    xyz, cent, feats = _bq_inputs()
+    xyz, cent, feats = _bq_inputs(c=c)
     feats = feats if with_features else None
-    radii, nsamples = (0.15, 0.4), (4, 8)
-    got = plain.ball_query_group(radii, nsamples, _t(xyz), _t(cent),
-                                 None if feats is None else _t(feats))
-    jf = None if feats is None else jnp.asarray(feats)
+    radii = (0.15, 0.4)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if bf16
+                else (jnp.float32, torch.float32))
+    tf = None if feats is None else _t(feats).to(tdt)
+    jf = None if feats is None else jnp.asarray(feats).astype(jdt)
+    got = plain.ball_query_group(radii, nsamples, _t(xyz), _t(cent), tf, tdt)
     pallas = ball_query_group_pallas_t(radii, nsamples, jnp.asarray(xyz),
                                        jnp.asarray(cent), jf, True,
-                                       interpret=True)
+                                       interpret=True, out_dtype=jdt)
     # the untransposed twin kernel computes the same function
     twin = ball_query_group_pallas(radii, nsamples, jnp.asarray(xyz),
-                                   jnp.asarray(cent), jf, True, interpret=True)
+                                   jnp.asarray(cent), jf, True, interpret=True,
+                                   out_dtype=jdt)
     xla = xla_ops.ball_query_group(radii, nsamples, jnp.asarray(xyz),
                                    jnp.asarray(cent), jf, True)
-    for g, p, tw, x in zip(got, pallas, twin, xla):
-        assert g.shape == (2, 128, g.shape[2], 3 + (0 if feats is None else 5))
-        np.testing.assert_array_equal(g.numpy(), np.asarray(p))
-        np.testing.assert_array_equal(g.numpy(), np.asarray(tw))
-        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+    for g, ns, p, tw, x in zip(got, nsamples, pallas, twin, xla):
+        assert g.dtype == tdt
+        assert g.shape == (2, 128, ns, 3 + (0 if feats is None else c))
+        g = g.float().numpy()
+        np.testing.assert_array_equal(g, np.asarray(p.astype(jnp.float32)))
+        np.testing.assert_array_equal(g, np.asarray(tw.astype(jnp.float32)))
+        # XLA groups in float32; the kernels round once to the output type
+        np.testing.assert_array_equal(
+            g, np.asarray(x.astype(jdt).astype(jnp.float32)))
 
 
 @pytest.mark.parametrize("radius,nsample", [(0.2, 8), (0.5, 16), (0.02, 4)])

@@ -362,3 +362,52 @@ def test_schedules_equal_jax():
             js.bn_momentum(step, decay_step=2))
     assert schedules.cyclic_triangular_lr(0) == np.float32(1e-5)
     assert schedules.bn_momentum(10 ** 6) == np.float32(0.01)
+
+
+def test_adam_betas_and_eps_overrides_match_jax():
+    """``adam_betas`` / ``adam_eps`` reach Adam as the reference's
+    ``make_optimizer`` passes them to optax. Three steps (Adam's first is
+    +-LR whatever the betas), gradients that change from step to step and
+    are small enough (~1e-6) for eps to matter, the LR of each step from
+    the cyclic schedule: the updates agree to 1e-6 of the largest, and
+    differ from those of the default betas and eps."""
+    import optax
+
+    from istnet_tpu.train.train_state import make_optimizer as jax_optimizer
+    from istnet_tpu.utils.config import Config
+    from istnet_tpu_torch.train.train_state import TrainConfig, make_optimizer
+
+    rng = np.random.RandomState(3)
+    w0 = rng.randn(6).astype(np.float32)
+    grads = [(rng.randn(6) * 1e-6 * (1 + k)).astype(np.float32)
+             for k in range(3)]
+    # max_epoch 1 x 12 iterations: a half period of 2 steps, so the LR moves
+    tx, _ = jax_optimizer(
+        Config({"optimizer": {"adam_betas": [0.8, 0.99], "adam_eps": 1e-6,
+                              "weight_decay": 0.0}, "max_epoch": 1}),
+        12, {"w": jnp.asarray(w0)})
+    params = {"w": jnp.asarray(w0)}
+    state = tx.init(params)
+    for g in grads:
+        updates, state = tx.update({"w": jnp.asarray(g)}, state, params)
+        params = optax.apply_updates(params, updates)
+    want = np.asarray(params["w"]) - w0
+
+    def torch_updates(cfg):
+        model = torch.nn.Linear(6, 1, bias=False)
+        with torch.no_grad():
+            model.weight.copy_(torch.from_numpy(w0)[None])
+        opt = make_optimizer(model, cfg)
+        for step, g in enumerate(grads):
+            for group in opt.param_groups:
+                group["lr"] = cfg.lr(step)
+            model.weight.grad = torch.from_numpy(g)[None].clone()
+            opt.step()
+        return model.weight.detach()[0].numpy() - w0
+
+    got = torch_updates(TrainConfig(max_epoch=1, iters_per_epoch=12,
+                                    adam_betas=(0.8, 0.99), adam_eps=1e-6))
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-6 * scale
+    default = torch_updates(TrainConfig(max_epoch=1, iters_per_epoch=12))
+    assert np.abs(default - want).max() > 1e-2 * scale
