@@ -38,9 +38,12 @@ then the float32 train step (``train/train_state.py``):
    against its plain version at B=24 on the step's inputs: a train batch's
    points through the camera extractor's stages and its NOCS points
    through the world extractor's, every SA and FP stage with its radii;
-   then each kernel's ms per step against its plain version's, the two
-   scatters also against PyTorch's ``index_add_`` on the same rows (a
-   yardstick that the port never calls);
+   the two scatters also with bf16 cotangents (off the f32 path), each of
+   their cases launched twice and held bit-equal; then each kernel's ms per
+   step against its plain version's, the two scatters also against
+   PyTorch's ``index_add_`` on the same rows (a yardstick that the port
+   never calls), with their device us stage by stage, the inversion's
+   launch apart from the gather's;
 8. train steps: the full-width model at B=24, N=1024, 192x192 takes 3 steps
    of the default recipe and 2 of the frozen one; each step's loss and
    gradients are finite, the trained parameters move, every BatchNorm's
@@ -48,7 +51,11 @@ then the float32 train step (``train/train_state.py``):
    often as the step's path asks;
 9. train reference: one step on the card against the same step of the
    port's CPU path (same weights and batch, dropout off, B=2, small
-   npoints): the loss, the gradients and the updated state;
+   npoints): the loss, the gradients and the updated state; then one step
+   at full width (B=2, N=1024, 192x192, SA npoints 512/256/128/64) on the
+   card against the port's float64 CPU step: the loss parts and the
+   gradients, and whether a second card step repeats the first bit for
+   bit;
 10. train timings: median step ms over 10 steps with its forward, backward
    and update split (CUDA events), peak memory.
 
@@ -124,7 +131,8 @@ BF16_PER_FORWARD = {"fps": 4, "ball_query_group": 1, "fp_interpolate": 4,
 TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG = 24, 1024, 192
 TRAIN_SA_NPOINTS = (512, 256, 128, 64)
 TRAIN_STEPS, FROZEN_STEPS, TIMED_STEPS = 3, 2, 10
-SCATTER_TOL = 1e-5      # normwise, as FP_REL_TOL (f32 atomics: sum order)
+SCATTER_TOL = 1e-5      # normwise, as FP_REL_TOL (f32 sums in a fixed
+                        # order of their own, the plain versions in theirs)
 # launches of one step: forward FPS / grouping / FP in both extractors
 # (fold and fused SA are eval-only); backward kernel 8 + grouping scatter
 # at SA 2-4 and kernel 10 + interpolation scatter at FP 1-4, of both
@@ -158,6 +166,16 @@ REF_GRAD_FLOOR = 1e-5
 REF_GRAD_TENSOR_TOL = 0.1
 REF_UPDATE_SHARE = 1e-2
 REF_STATS_TOL = 1e-4
+# card float32 vs CPU float64 train step at full width (B=2, N=1024, 192x192,
+# SA npoints 512/256/128/64, dropout off), bounds 5-60x over the measurement
+# on the H100: loss parts, relative (measured 1.7e-7); gradients normwise
+# over all (3.1e-3), and per tensor above REF_GRAD_FLOOR of the largest
+# (<= 0.10, rgb_cam_extractor.model.feats.layer3.1.conv1.weight: float32
+# convolutions against float64 ones)
+FULL_REF_BATCH = 2
+FULL_LOSS_TOL = 1e-5
+FULL_GRAD_TOL = 2e-2
+FULL_GRAD_TENSOR_TOL = 0.5
 
 # the serving path from a raw frame: one 480 x 640 frame of 6 instances in a
 # bucket of 8; the loops over a synthetic tree
@@ -425,6 +443,25 @@ def train_kernel_cases(device):
     return cases
 
 
+def with_bf16_scatter_twins(cases) -> dict:
+    """``cases`` with each scatter case followed by its bf16 twin (the
+    same call with its cotangents rounded to bf16), which the float32 step
+    does not launch."""
+    twins = {
+        "group_scatter": lambda idx, grads, n: (
+            idx, [g.bfloat16() for g in grads], n),
+        "interp_scatter": lambda grad, idx, weight, m: (
+            grad.bfloat16(), idx, weight, m)}
+    return {name: [case for args, k in case_list
+                   for case in ((args, k), (twins[name](*args), 0))]
+            if name in twins else case_list
+            for name, case_list in cases.items()}
+
+
+def _dtype(t) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
 def _label(name: str, args) -> str:
     if name == "fps":
         return f"N={args[0].shape[1]} npoint={args[1]}"
@@ -434,12 +471,12 @@ def _label(name: str, args) -> str:
     if name == "group_scatter":
         idx, grads, n = args
         return (f"N={n} M={idx[0].shape[1]} C={grads[0].shape[-1]} "
-                f"ns={[i.shape[-1] for i in idx]}")
+                f"ns={[i.shape[-1] for i in idx]} {_dtype(grads[0])}")
     if name == "three_nn":
         return f"N={args[0].shape[1]} M={args[1].shape[1]}"
     if name == "interp_scatter":
         grad, _, _, m = args
-        return f"N={grad.shape[1]} M={m} C={grad.shape[-1]}"
+        return f"N={grad.shape[1]} M={m} C={grad.shape[-1]} {_dtype(grad)}"
     if name in ("ball_query_group", "sa_fused"):
         xyz, new_xyz, feats = args[2:5]
         c = 3 + (0 if feats is None else feats.shape[-1])
@@ -553,6 +590,14 @@ def phase_kernels(cases, bf16: bool = False, tag: str = "") -> dict:
             got, want = kern(*args), mod.plain(*args)
             torch.cuda.synchronize()
             err = _check(name, got, want, bf16)
+            if name in ("group_scatter", "interp_scatter"):
+                # owned, ordered sums: a second launch gives the same bits
+                again = kern(*args)
+                for g, a in zip(*((got, again) if name == "group_scatter"
+                                  else ([got], [again]))):
+                    if not torch.equal(g, a):
+                        raise AssertionError(f"{name}: a second launch "
+                                             f"changes the bits")
             loose = _unpacked(name, args)
             if loose is not None:
                 # packing on the fly, and a second launch: the same bits
@@ -776,14 +821,16 @@ def library_call(name: str, args):
     other kernel fuses a search, a gather, a product or a stencil chain with
     what follows it. The scatters: ``index_add_`` of the same rows into the
     same rows, per radius for the grouping scatter (its centroid sums left
-    out) and on the weighted rows, formed ahead, for the interpolation's."""
+    out) and on the weighted rows, formed ahead, for the interpolation's;
+    bf16 cotangents are widened to float32 ahead (``index_add_`` adds rows
+    of the output's dtype)."""
     import torch
     if name == "group_scatter":
         idx_list, grads, n = args
         b, c = grads[0].shape[0], grads[0].shape[-1]
         base = torch.arange(b, device=grads[0].device)[:, None, None] * n
         flat = [(i.long() + base).reshape(-1) for i in idx_list]
-        rows = [g.reshape(-1, c) for g in grads]
+        rows = [g.float().reshape(-1, c) for g in grads]
         out = torch.zeros(b * n, c, device=grads[0].device)
 
         def call():
@@ -796,7 +843,7 @@ def library_call(name: str, args):
         b, n, c = grad.shape
         base = torch.arange(b, device=grad.device)[:, None, None] * m
         flat = (idx.long() + base).reshape(-1)
-        rows = (weight[..., None] * grad[:, :, None, :]).reshape(-1, c)
+        rows = (weight[..., None] * grad.float()[:, :, None, :]).reshape(-1, c)
         out = torch.zeros(b * m, c, device=grad.device)
         return lambda: out.zero_().index_add_(0, flat, rows)
     return None
@@ -871,8 +918,20 @@ def _stage_split(name: str, kern, args, tag: str) -> dict:
     kernel (U, then the main kernel) and the fold (GEMM, then
     interpolation) stage by stage; FPS as ns a step; the grouping beside
     kernel 8 (the query alone, its lists stored as indices) and the
-    ``index_select`` yardstick. Returns the device us read."""
+    ``index_select`` yardstick; the scatters by launch (the inversion, then
+    the gather) beside ``index_add_`` of the same rows. Returns the device
+    us read."""
     from istnet_tpu_torch.ops import dispatch
+    if name in ("group_scatter", "interp_scatter"):
+        sums = device_us(lambda: kern(*args))
+        inv = sum(v for k, v in sums.items() if "invert" in k)
+        us = sum(sums.values()) or float("nan")
+        lib = _device_total(library_call(name, args))
+        parts = ", ".join(f"{k} {v:.1f}" for k, v in sorted(sums.items()))
+        print(f"[timings] {tag}{name} {_label(name, args)}: device {us:.1f} "
+              f"us a call ({parts or 'no device event'}); index_add_ "
+              f"{lib:.1f} us")
+        return {"device": us, "inversion": inv, "index_add_": lib}
     if name in ("sa_fused", "fold_upsample"):
         sums = device_us(lambda: kern(*args))
         parts = ", ".join(f"{k} {v:.1f}" for k, v in sorted(sums.items()))
@@ -925,7 +984,8 @@ def time_kernels(cases, tag: str = "") -> dict:
                   f"{max(by, op):.5f} ms (bytes {by:.5f}, operations "
                   f"{op:.5f}){note}")
             for k, v in _stage_split(name, kern, args, tag).items():
-                split[k] = split.get(k, 0.0) + v * on_path
+                if on_path:
+                    split[k] = split.get(k, 0.0) + v * on_path
             k_ms += km * on_path
             p_ms += pm * on_path
             l_ms += (lm or 0.0) * on_path
@@ -1185,6 +1245,84 @@ def phase_train_reference(device) -> None:
             f"at {worst_t} ({REF_GRAD_TENSOR_TOL}), updates off {u_share} "
             f"({REF_UPDATE_SHARE}), statistics {s_err[worst_s]} "
             f"({REF_STATS_TOL})")
+
+
+def phase_train_full_width(device) -> None:
+    """One default-recipe step at full width on the card (float32) against
+    the same step of the port's CPU path in float64, same weights and
+    batch, dropout off: the loss parts and the gradients. Then the card
+    step once more from the same state: whether it repeats bit for bit."""
+    import torch
+
+    from istnet_tpu_torch.entry import build_train_model, make_train_batch
+    from istnet_tpu_torch.train.train_state import (
+        TrainConfig,
+        make_optimizer,
+        train_step,
+    )
+    cfg = TrainConfig()
+    batch = make_train_batch(FULL_REF_BATCH, TRAIN_POINTS, TRAIN_IMG, seed=6)
+    init = None
+    runs = []
+    t0 = time.perf_counter()
+    for dev, dtype in (("cpu", torch.float64), (device, torch.float32),
+                       (device, torch.float32)):
+        model = build_train_model(dev, seed=4, sa_npoints=TRAIN_SA_NPOINTS)
+        if init is None:
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(init)
+        model.to(dtype)
+        _dropout_off(model)
+        b = {part: {k: (v.to(dtype) if v.is_floating_point() else v).to(dev)
+                    for k, v in d.items()} for part, d in batch.items()}
+        with policy(dtype):
+            parts = train_step(model, make_optimizer(model, cfg), b, 0,
+                               torch.Generator(device=dev), cfg)
+        runs.append(({k: float(v) for k, v in parts.items()},
+                     {k: p.grad.detach().double().cpu()
+                      for k, p in model.named_parameters()
+                      if p.grad is not None}))
+        del model
+    seconds = time.perf_counter() - t0
+    (l_cpu, g_cpu), (l_gpu, g_gpu), (l_again, g_again) = runs
+    if set(g_cpu) != set(g_gpu):
+        raise AssertionError("full width: card and CPU differ in which "
+                             "parameters have a gradient")
+    loss_err = max(abs(l_gpu[k] - v) / max(abs(v), 1e-12)
+                   for k, v in l_cpu.items())
+    g_top = max(g.abs().max().item() for g in g_cpu.values())
+    g_all = max((g_gpu[k] - g).abs().max().item()
+                for k, g in g_cpu.items()) / g_top
+    above = {k: (g_gpu[k] - g).abs().max().item() / g.abs().max().item()
+             for k, g in g_cpu.items()
+             if g.abs().max().item() > REF_GRAD_FLOOR * g_top}
+    worst = sorted(above.items(), key=lambda kv: -kv[1])[:3]
+    differ = [k for k in g_gpu if not torch.equal(g_gpu[k], g_again[k])]
+    by_module: dict = {}
+    for k in differ:
+        by_module[k.split(".")[0]] = by_module.get(k.split(".")[0], 0) + 1
+    same_loss = l_gpu == l_again
+    print(f"[train-reference] full width B={FULL_REF_BATCH} N={TRAIN_POINTS} "
+          f"{TRAIN_IMG}x{TRAIN_IMG}, card float32 vs CPU float64 "
+          f"({seconds:.1f} s): loss parts rel err {loss_err:.3g} (bound "
+          f"{FULL_LOSS_TOL:g}); gradients normwise over all {g_all:.3g} "
+          f"(bound {FULL_GRAD_TOL:g}; max|g| {g_top:.3g}); per tensor, "
+          f"{len(above)} of {len(g_cpu)} above {REF_GRAD_FLOOR:g} of the "
+          f"largest, worst "
+          + ", ".join(f"{k} {e:.3g}" for k, e in worst)
+          + f" (bound {FULL_GRAD_TENSOR_TOL:g})")
+    print(f"[train-reference] full width, a second card step: loss parts "
+          f"{'equal' if same_loss else 'differ'}, {len(differ)} of "
+          f"{len(g_gpu)} gradient tensors differ in their bits"
+          + (f", by module {by_module} (first: {', '.join(differ[:3])})"
+             if differ else ""))
+    if (loss_err > FULL_LOSS_TOL or g_all > FULL_GRAD_TOL
+            or worst[0][1] > FULL_GRAD_TENSOR_TOL):
+        raise AssertionError(
+            f"full width card vs CPU float64 train step: loss {loss_err} "
+            f"({FULL_LOSS_TOL}), gradients {g_all} ({FULL_GRAD_TOL}), per "
+            f"tensor {worst[0]} ({FULL_GRAD_TENSOR_TOL})")
 
 
 def phase_train_timings(device) -> None:
@@ -1615,11 +1753,12 @@ def main() -> int:
            list(serve16))
 
     with policy(torch.float32):
-        train_cases = train_kernel_cases(device)
+        train_cases = with_bf16_scatter_twins(train_kernel_cases(device))
         errs_t = phase_kernels(train_cases, tag="train ")
         times_t = time_kernels(train_cases, "train ")
         counts_t = phase_train_steps(device)
         phase_train_reference(device)
+        phase_train_full_width(device)
         phase_train_timings(device)
     record("train", "float32", errs_t, counts_t, times_t, list(train_cases))
 

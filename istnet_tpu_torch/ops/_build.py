@@ -175,6 +175,13 @@ def cuda_inputs(name: str, *tensors, dtypes=None):
     return out
 
 
+def vector_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy if its data does not start on a 16-byte
+    boundary (a view into another tensor), for kernels that read it as
+    aligned vectors of 4 values."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def stream(t) -> int:
     """The handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -193,6 +193,25 @@ def group_scatter(idx_list, grads, n: int):
     return points_bar, centroid_bar
 
 
+
+def invert_index(keys: torch.Tensor, rows: int):
+    """The inversion that the two backward scatters run on the card
+    (``csrc/scatter_invert.cuh``), plainly: ``(B, E)`` keys in ``[0,
+    rows)`` -> ``order (B, E)``, each sample's entry ids grouped by the row
+    they name and ascending inside a row, and ``offsets (B, rows + 1)``,
+    where row ``p``'s entries are ``order[offsets[p]:offsets[p + 1]]`` (CSR
+    form), both int32. For the grouping scatter the entries of a sample are
+    its radii's slots in (radius, centroid, slot) order, for the
+    interpolation scatter its (unknown, neighbour) pairs."""
+    b, e = keys.shape
+    k = keys.long()
+    counts = torch.zeros(b, rows, dtype=torch.long, device=keys.device)
+    counts.scatter_add_(1, k, torch.ones_like(k))
+    offsets = torch.cat([counts.new_zeros(b, 1), counts.cumsum(dim=1)], dim=1)
+    entry = torch.arange(e, device=keys.device)
+    order = torch.argsort(k * e + entry, dim=1)     # unique: row, then entry
+    return order.to(torch.int32), offsets.to(torch.int32)
+
 # ---------------------------------------------------------------------------
 # Three-NN interpolation
 # ---------------------------------------------------------------------------

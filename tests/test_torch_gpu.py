@@ -21,7 +21,9 @@ bf16 differently.
 Training (float32): the backward kernels (8: multi-radius ball query, the
 grouping scatter, 10: 3-NN, the interpolation scatter) against their plain
 versions, indices and distances equal, scatters to 1e-5 of the largest
-value (f32 atomics add in another order); the dispatch ops' gradients on
+value (they sum each row in a fixed order, the plain versions in theirs)
+with float32 and bf16 cotangents, and bit-equal from call to call; their
+inversion equal to its plain version; the dispatch ops' gradients on
 the card against autograd through the plain ops on the CPU; one tiny train
 step on the card against the same step on the CPU.
 """
@@ -38,7 +40,7 @@ from istnet_tpu_torch.entry import (
     make_train_batch,
 )
 from istnet_tpu_torch.nn import layers, precision
-from istnet_tpu_torch.ops import dispatch, fold_upsample, sa_fused
+from istnet_tpu_torch.ops import dispatch, fold_upsample, sa_fused, scatter_invert
 from istnet_tpu_torch.ops import pointnet2 as plain
 from istnet_tpu_torch.train.train_state import (
     TrainConfig,
@@ -494,6 +496,175 @@ def test_interp_scatter_kernel(cuda, n, m, c):
     want = plain.three_interpolate_grad(grad, idx, weight, m)
     assert got.shape == (2, m, c)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def _close(got, want):
+    """A scatter's output against its plain version: dtype, shape, 1e-5 of
+    the largest value."""
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def _group_scatter_case(cuda, seed, b, n, m, cf, dtype, radii=(0.04, 0.08),
+                        one_point=None):
+    """Index maps of the ball query (centroids among the points, a few far
+    away without a hit) or, with ``one_point``, that point in every slot;
+    cotangents of ``dtype``."""
+    rng = np.random.RandomState(seed)
+    xyz = _f32(rng.randn(b, n, 3) * 0.1, cuda)
+    cent = xyz[:, torch.from_numpy(rng.randint(0, n, m)).to(cuda)].clone()
+    cent[0, :5] += 50.0
+    idx = plain.ball_query_multi(radii, (16, 32), xyz, cent)
+    if one_point is not None:
+        idx = [torch.full_like(i, one_point) for i in idx]
+    grads = [_f32(rng.randn(b, m, ns, 3 + cf), cuda).to(dtype)
+             for ns in (16, 32)]
+    return idx, grads
+
+
+def _check_group_scatter(idx, grads, n):
+    kern = dispatch.wrapper("group_scatter")
+    got = kern(idx, grads, n)
+    again = kern(idx, grads, n)
+    want = plain.group_scatter(idx, grads, n)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):      # points_bar, centroid_bar
+        _close(g, w)
+        assert torch.equal(g, a)               # the same bits, call to call
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,cf", [(512, 256, 64), (256, 128, 128),
+                                    (128, 64, 256)],
+                         ids=["sa2", "sa3", "sa4"])
+def test_group_scatter_kernel_path_shapes(cuda, n, m, cf, dtype):
+    """SA stages 2-4 (3 + C = 67, 131, 259), B=3."""
+    idx, grads = _group_scatter_case(cuda, 12, 3, n, m, cf, dtype)
+    _check_group_scatter(idx, grads, n)
+    assert ops.launch_counts()["group_scatter"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("point", [0, 77])
+def test_group_scatter_kernel_one_point_in_every_ball(cuda, point, dtype):
+    """Every slot names one point: its list is every slot of the sample
+    (12,288 rows at SA stage 2's shape), cut into chunks whose partial
+    sums meet; every other point gets zeros."""
+    idx, grads = _group_scatter_case(cuda, 13, 2, 512, 256, 64, dtype,
+                                     one_point=point)
+    _check_group_scatter(idx, grads, 512)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,cf,radii", [(2500, 4000, 7, (0.01, 0.03)),
+                                          (2500, 300, 600, (0.02, 0.05))])
+def test_group_scatter_kernel_large_cloud(cuda, n, m, cf, radii, dtype):
+    """N = 2500 points: histograms too large for shared memory take the
+    workspace; M = 4000 centroids; a wide row (3 + C = 603)."""
+    idx, grads = _group_scatter_case(cuda, 14, 2, n, m, cf, dtype, radii)
+    _check_group_scatter(idx, grads, n)
+
+
+def _check_interp_scatter(grad, idx, weight, m):
+    kern = dispatch.wrapper("interp_scatter")
+    got, again = kern(grad, idx, weight, m), kern(grad, idx, weight, m)
+    want = plain.three_interpolate_grad(grad, idx, weight, m)
+    torch.cuda.synchronize()
+    _close(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [125, 127, 253, 509, 517])
+def test_interp_scatter_kernel_widths_at_a_vector_seam(cuda, c, dtype):
+    """Rows that are not 16-byte aligned and end within 3 values of a
+    warp's 128 channels, a slice's 512, or just past them: the values that
+    lane 31 takes from the vector after its last."""
+    rng = np.random.RandomState(20)
+    unknown = _f32(rng.randn(2, 90, 3) * 0.1, cuda)
+    dist, idx = plain.three_nn(unknown, unknown[:, :40].contiguous())
+    weight = plain.three_interpolate_weights(dist)
+    grad = _f32(rng.randn(2, 90, c), cuda).to(dtype)
+    _check_interp_scatter(grad, idx, weight, 40)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,c", [(128, 64, 512), (256, 128, 512),
+                                   (512, 256, 256), (1024, 512, 256),
+                                   (2500, 4000, 37), (4000, 2500, 300)],
+                         ids=["fp1", "fp2", "fp3", "fp4", "m4000", "n4000"])
+def test_interp_scatter_kernel_shapes(cuda, n, m, c, dtype):
+    """FP stages 1-4 in call order, the known set part of the unknown one
+    (distances of 0); M = 4000 known points (histograms in the workspace,
+    most rows empty) and N = 4000 unknown ones; B=3."""
+    rng = np.random.RandomState(15)
+    unknown = _f32(rng.randn(3, n, 3) * 0.1, cuda)
+    known = (unknown[:, :m].contiguous() if m <= n
+             else _f32(rng.randn(3, m, 3) * 0.1, cuda))
+    dist, idx = plain.three_nn(unknown, known)
+    weight = plain.three_interpolate_weights(dist)
+    grad = _f32(rng.randn(3, n, c), cuda).to(dtype)
+    _check_interp_scatter(grad, idx, weight, m)
+    assert ops.launch_counts()["interp_scatter"] == 2
+
+
+def test_scatters_take_cotangents_off_a_16_byte_boundary(cuda):
+    """A cotangent that is a view starting 4 bytes into its storage (the
+    kernels read rows as aligned vectors: the wrappers copy it first)."""
+    rng = np.random.RandomState(18)
+    unknown = _f32(rng.randn(2, 300, 3) * 0.1, cuda)
+    dist, idx = plain.three_nn(unknown, unknown[:, :70].contiguous())
+    weight = plain.three_interpolate_weights(dist)
+    flat = _f32(rng.randn(2 * 300 * 37 + 1), cuda)
+    grad = flat[1:].view(2, 300, 37)
+    assert grad.data_ptr() % 16 != 0
+    _check_interp_scatter(grad, idx, weight, 70)
+    idx_g, grads = _group_scatter_case(cuda, 19, 2, 300, 45, 6, torch.float32)
+    shifted = []
+    for g in grads:
+        f = torch.empty(g.numel() + 1, device=cuda)
+        f[1:] = g.reshape(-1)
+        shifted.append(f[1:].view(g.shape))
+    _check_group_scatter(idx_g, shifted, 300)
+
+
+def test_interp_scatter_kernel_one_known_point(cuda):
+    """Every neighbour is known point 3: one list of all 3 N pairs."""
+    rng = np.random.RandomState(16)
+    idx = torch.full((2, 1024, 3), 3, dtype=torch.int32, device=cuda)
+    weight = _f32(rng.rand(2, 1024, 3), cuda)
+    grad = _f32(rng.randn(2, 1024, 256), cuda)
+    _check_interp_scatter(grad, idx, weight, 512)
+
+
+@pytest.mark.parametrize("case", ["sa2", "fp4", "one_point", "rows2500",
+                                  "rows4000", "empty"])
+def test_invert_index_kernel(cuda, case):
+    """The inversion the scatters run, alone, equal to its plain version:
+    SA stage 2's maps with rows without a hit and pad slots, FP stage 4's,
+    one point named by every entry, histograms in the workspace (2,500 and
+    4,000 rows), no entry at all."""
+    rng = np.random.RandomState(17)
+    if case == "sa2":
+        idx, _ = _group_scatter_case(cuda, 12, 3, 512, 256, 64, torch.float32)
+        keys, rows = torch.cat([i.reshape(3, -1) for i in idx], 1), 512
+    elif case == "fp4":
+        unknown = _f32(rng.randn(3, 1024, 3) * 0.1, cuda)
+        _, idx = plain.three_nn(unknown, unknown[:, :512].contiguous())
+        keys, rows = idx.reshape(3, -1), 512
+    elif case == "one_point":
+        keys, rows = torch.full((2, 12288), 9, dtype=torch.int32,
+                                device=cuda), 512
+    elif case in ("rows2500", "rows4000"):
+        rows = 2500 if case == "rows2500" else 4000
+        keys = torch.from_numpy(rng.randint(0, rows, (2, 4000 * 48))
+                                .astype(np.int32)).to(cuda)
+    else:
+        keys, rows = torch.zeros(2, 0, dtype=torch.int32, device=cuda), 64
+    got = scatter_invert.invert_index_cuda(keys, rows)
+    want = scatter_invert.plain(keys, rows)
+    for g, w in zip(got, want):               # order, offsets
+        assert g.dtype == torch.int32 and torch.equal(g, w)
 
 
 def test_card_train_step_matches_cpu_train_step(cuda):

@@ -10,6 +10,11 @@
   VJPs in interpret mode, on the same cotangent, rtol 1e-5 (the scatters
   sum in another order). The Functions themselves take CUDA tensors only
   (``tests/test_torch_gpu.py``).
+- The same with bf16 cotangents (the plain versions read them exactly and
+  sum in float32), against the VJPs' bf16 branches.
+- The inversion both scatters run on the card, in its plain version
+  (``invert_index``), against ``numpy.argsort(kind="stable")`` on the
+  path's index maps.
 - BatchNorm in train mode, Dropout2d, the losses and the schedules.
 
 Inputs are made from numpy seeds and handed to both frameworks.
@@ -215,6 +220,124 @@ def test_interp_scatter_is_the_transpose_of_the_interpolation():
                                   feats, cot)
     torch.testing.assert_close(plain.three_interpolate_grad(cot, idx, weight, 40),
                                want, rtol=1e-5, atol=1e-6)
+
+
+def _bf16(a):
+    """bf16 values of ``a`` as float32 numpy (exact) and as a bf16 tensor."""
+    t = torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    return t.float().numpy(), t
+
+
+@pytest.mark.parametrize("with_features", [True, False])
+def test_grouping_scatter_bf16_cotangents_match_jax_vjp(with_features):
+    """bf16 cotangents, the bf16 policy's grouped outputs: the setup of
+    ``tests/test_pallas_kernels.py:123`` (``_bqg_bwd``'s bf16 one-hot
+    branch, interpret mode), plus rows without a hit, held to the plain
+    versions of what ``BallQueryGroup.backward`` runs on the card. bf16
+    values are exact in float32 and both sides sum in float32, so they
+    differ by summation order only (rtol 1e-5, as in float32)."""
+    from istnet_tpu.ops.ball_query_pallas import ball_query_group
+
+    xyz, cent, feats = _bqg_inputs(seed=11)
+    radii, nsamples = (0.15, 0.4), (4, 8)
+    feats = feats if with_features else None
+    c = 3 + (feats.shape[-1] if with_features else 0)
+    rng = np.random.RandomState(12)
+    cots = [_bf16(rng.randn(2, 128, ns, c)) for ns in nsamples]
+
+    idx = plain.ball_query_multi(radii, nsamples, _t(xyz), _t(cent))
+    points_bar, centroid_bar = plain.group_scatter(idx, [t for _, t in cots],
+                                                   128)
+    assert points_bar.dtype == centroid_bar.dtype == torch.float32
+
+    def f(x, cen, *fe):
+        return tuple(ball_query_group(radii, nsamples, True, True, x, cen,
+                                      fe[0] if fe else None, jnp.bfloat16))
+
+    j_in = [jnp.asarray(xyz), jnp.asarray(cent)] + (
+        [jnp.asarray(feats)] if with_features else [])
+    _, vjp = jax.vjp(f, *j_in)
+    want = vjp(tuple(jnp.asarray(a).astype(jnp.bfloat16) for a, _ in cots))
+    got = [points_bar[..., :3], centroid_bar, points_bar[..., 3:]]
+    for g, w, name in zip(got, want, ("xyz", "new_xyz", "features")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w, np.float32),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_fp_scatter_bf16_cotangent_matches_jax_vjp():
+    """bf16 features and cotangent through ``_fpi_bwd`` (interpret mode),
+    which sums in float32 and rounds the gradient once to bf16, against
+    the plain interpolation scatter, which keeps the float32 sum: they
+    differ by that one rounding, at most 2^-8 of each value."""
+    from istnet_tpu.ops.three_nn_pallas import fp_interpolate
+
+    rng = np.random.RandomState(13)
+    unknown = (rng.randn(2, 128, 3) * 0.3).astype(np.float32)
+    known = (rng.randn(2, 64, 3) * 0.3).astype(np.float32)
+    feats, _ = _bf16(rng.randn(2, 64, 6))
+    cot, t_cot = _bf16(rng.randn(2, 128, 6))
+    dist, idx = plain.three_nn(_t(unknown), _t(known))
+    got = plain.three_interpolate_grad(
+        t_cot, idx, plain.three_interpolate_weights(dist), 64)
+    assert got.dtype == torch.float32
+    _, vjp = jax.vjp(lambda a, b_, c: fp_interpolate(a, b_, c, True),
+                     jnp.asarray(unknown), jnp.asarray(known),
+                     jnp.asarray(feats).astype(jnp.bfloat16))
+    want = vjp(jnp.asarray(cot).astype(jnp.bfloat16))[2]
+    assert want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               rtol=2.0 ** -8, atol=1e-6)
+
+
+def _grouping_keys():
+    """SA stage 2's index maps (camera radii, 16 + 32 slots) flattened in
+    (radius, centroid, slot) order, as the grouping scatter inverts them:
+    pad slots repeat a row's first hit, 4 far centroids have no hit
+    (point 0)."""
+    xyz = _cloud(20, 2, 256, 0.1)
+    cent = np.concatenate([xyz[:, :60], _cloud(21, 2, 4, 0.1) + 5.0], axis=1)
+    idx = plain.ball_query_multi(CAM_RADII[1], (16, 32), _t(xyz), _t(cent))
+    assert (idx[0][:, 60:] == 0).all()                          # no hit
+    assert (idx[1][..., -1] == idx[1][..., 0]).any()            # pad slots
+    return torch.cat([i.reshape(2, -1) for i in idx], dim=1), 256
+
+
+def _interpolation_keys():
+    unknown = _cloud(22, 2, 128, 0.3)
+    known = np.concatenate([unknown[:, :32], _cloud(23, 2, 32, 0.3)], axis=1)
+    _, idx = plain.three_nn(_t(unknown), _t(known))
+    return idx.reshape(2, -1), 64
+
+
+@pytest.mark.parametrize("case", ["grouping", "interpolation", "one_point",
+                                  "sparse", "empty"])
+def test_invert_index_matches_stable_argsort(case):
+    """The plain inversion: per sample, the entries grouped by the row they
+    name, ascending inside a row (a stable sort), and CSR offsets. Rows
+    without an entry stay empty; ``one_point``: one point named by every
+    slot, the longest list; ``sparse``: most rows empty."""
+    rng = np.random.RandomState(24)
+    if case == "grouping":
+        keys, rows = _grouping_keys()
+    elif case == "interpolation":
+        keys, rows = _interpolation_keys()
+    elif case == "one_point":
+        keys, rows = torch.full((2, 64 * 48), 5, dtype=torch.int32), 128
+    elif case == "sparse":
+        keys = _t(rng.randint(0, 1000, (3, 700)).astype(np.int32))
+        rows = 1000
+    else:
+        keys, rows = torch.zeros(2, 0, dtype=torch.int32), 7
+    order, offsets = plain.invert_index(keys, rows)
+    k = keys.numpy()
+    assert order.dtype == offsets.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(k, axis=1, kind="stable"))
+    counts = np.stack([np.bincount(r, minlength=rows) for r in k]) if k.size \
+        else np.zeros((k.shape[0], rows), np.int64)
+    np.testing.assert_array_equal(
+        offsets.numpy(),
+        np.concatenate([np.zeros((k.shape[0], 1)), counts.cumsum(1)], 1))
 
 
 @pytest.mark.parametrize("route", ["function", "dispatch"])
