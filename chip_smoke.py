@@ -27,23 +27,29 @@ then for each compute policy, float32 and bf16 (the deployment precision):
    interpolation), FPS as device us a call and ns a step, the grouping as
    device us a call beside kernel 8's query of the same lists and
    ``torch.index_select`` of the same rows (a yardstick of a plain gather,
-   never in ``library_ms``), each summed over the path; under bf16 also
-   the fused SA kernel at stage 1 against the unfused stage 1;
+   never in ``library_ms``), the FP interpolation as device us a call by
+   FP stage, each summed over the path; under bf16 also the fused SA
+   kernel at stage 1 against the unfused stage 1;
 
 then the float32 train step (``train/train_state.py``):
 
 7. train kernels: every kernel the train step launches (the forward's FPS,
    grouping and FP interpolation; the backward's 8: multi-radius ball
-   query, the grouping scatter, 10: 3-NN, the interpolation scatter)
-   against its plain version at B=24 on the step's inputs: a train batch's
-   points through the camera extractor's stages and its NOCS points
-   through the world extractor's, every SA and FP stage with its radii;
-   the two scatters also with bf16 cotangents (off the f32 path), each of
-   their cases launched twice and held bit-equal; then each kernel's ms per
-   step against its plain version's, the two scatters also against
+   query, the grouping scatter, 10: 3-NN with the interpolation weights,
+   the interpolation scatter) against its plain version at B=24 on the
+   step's inputs: a train batch's points through the camera extractor's
+   stages and its NOCS points through the world extractor's, every SA and
+   FP stage with its radii; kernel 10 also writing distances (indices and
+   distances equal, weights within 2 ulp), the two scatters also with bf16
+   cotangents (off the f32 path), each of their cases launched twice and
+   held bit-equal; the two autograd Functions with bf16 cotangents at the
+   same shapes against autograd through the plain ops; then each kernel's
+   ms per step against its plain version's, the two scatters also against
    PyTorch's ``index_add_`` on the same rows (a yardstick that the port
    never calls), with their device us stage by stage, the inversion's
-   launch apart from the gather's;
+   launch apart from the gather's, kernels 3, 8 and 10 a call by stage,
+   10 beside ``torch.cdist`` + ``topk`` of the same points (a yardstick of
+   another formula, never in ``library_ms``);
 8. train steps: the full-width model at B=24, N=1024, 192x192 takes 3 steps
    of the default recipe and 2 of the frozen one; each step's loss and
    gradients are finite, the trained parameters move, every BatchNorm's
@@ -119,6 +125,10 @@ SA_FUSED_SHAPES = ((512, 256, 64, (32, 32, 64)), (256, 128, 128, (64, 64, 128)),
                    (128, 64, 256, (128, 128, 256)))
 SA1_SHAPE = (1024, 512, 0, (16, 16, 32))
 BF16_FP_TOL = 2.0 ** -8  # normwise, as FP_REL_TOL
+# bf16 gradients, normwise: one rounding of float32 sums taken in another
+# order can land one bf16 ulp apart, 2^-7 of the value at most (measured
+# 0.03125 at a largest value of 6.9 on the H100)
+BF16_GRAD_TOL = 2.0 ** -7
 BF16_FOLD_TOL = 1e-2    # as FOLD_TOL
 SA_TOL = 2e-2           # max|kernel - plain| / max(1, max|plain|)
 BF16_CPU_ATOL = 5e-3    # bf16 card vs bf16 CPU forward (measured <= 8.7e-4)
@@ -400,7 +410,8 @@ def train_kernel_cases(device):
     unknown ones: distances of exactly 0). Features and cotangents are
     random float32 of the stage's widths; the scatters take the indices of
     the plain searches (equal to the kernels', checked in the same phase).
-    SA stage 1 has no backward: its points are data."""
+    Kernel 10 runs its weights variant, as the FP backward does. SA stage 1
+    has no backward: its points are data."""
     import numpy as np
 
     from istnet_tpu_torch.entry import make_train_batch
@@ -435,7 +446,7 @@ def train_kernel_cases(device):
             unknown, known = levels[3 - k], levels[4 - k]
             cases["fp_interpolate"].append(
                 ((unknown, known, _f32(rng.randn(b, m, c), device)), 1))
-            cases["three_nn"].append(((unknown, known), 1))
+            cases["three_nn"].append(((unknown, known, True), 1))
             dist, idx = plain.three_nn(unknown, known)
             weight = plain.three_interpolate_weights(dist)
             cases["interp_scatter"].append(
@@ -458,6 +469,16 @@ def with_bf16_scatter_twins(cases) -> dict:
             for name, case_list in cases.items()}
 
 
+def with_three_nn_distances(cases) -> dict:
+    """``cases`` with each kernel-10 case followed by its distances variant
+    (the same search writing distances in place of the weights), which the
+    train step does not launch."""
+    return {name: [case for args, k in case_list
+                   for case in ((args, k), (args[:2], 0))]
+            if name == "three_nn" else case_list
+            for name, case_list in cases.items()}
+
+
 def _dtype(t) -> str:
     return str(t.dtype).removeprefix("torch.")
 
@@ -473,7 +494,8 @@ def _label(name: str, args) -> str:
         return (f"N={n} M={idx[0].shape[1]} C={grads[0].shape[-1]} "
                 f"ns={[i.shape[-1] for i in idx]} {_dtype(grads[0])}")
     if name == "three_nn":
-        return f"N={args[0].shape[1]} M={args[1].shape[1]}"
+        what = "weights" if args[2:] and args[2] else "distances"
+        return f"N={args[0].shape[1]} M={args[1].shape[1]} {what}"
     if name == "interp_scatter":
         grad, _, _, m = args
         return f"N={grad.shape[1]} M={m} C={grad.shape[-1]} {_dtype(grad)}"
@@ -506,6 +528,19 @@ def _check(name: str, got, want, bf16: bool) -> float:
                                  f"{tuple(got.shape)}, same completed pixels: "
                                  f"{same_pixels}")
         return err
+    if name == "three_nn weights":
+        # idx equal; the weights within 2 ulp of the plain ones (float32
+        # sums of 3 in another order)
+        (g, gi), (w_, wi) = got, want
+        ulp = torch.nextafter(w_.abs(), torch.full_like(w_, float("inf"))) \
+            - w_.abs()
+        err = (g - w_).abs()
+        if not torch.equal(gi, wi) or not (err <= 2 * ulp).all():
+            raise AssertionError(f"three_nn weights differ at "
+                                 f"{tuple(g.shape)}: indices equal "
+                                 f"{torch.equal(gi, wi)}, max "
+                                 f"{(err / ulp).max().item()} ulp")
+        return err.max().item()
     if name in ("ball_query", "three_nn"):
         # indices (and 3-NN distances) from the same arithmetic: equal
         for g, w_ in zip(got, want):
@@ -589,7 +624,9 @@ def phase_kernels(cases, bf16: bool = False, tag: str = "") -> dict:
         for args, _ in case_list:
             got, want = kern(*args), mod.plain(*args)
             torch.cuda.synchronize()
-            err = _check(name, got, want, bf16)
+            weights = name == "three_nn" and args[2:] and args[2]
+            err = _check(name + " weights" if weights else name, got, want,
+                         bf16)
             if name in ("group_scatter", "interp_scatter"):
                 # owned, ordered sums: a second launch gives the same bits
                 again = kern(*args)
@@ -664,7 +701,7 @@ def phase_reference(model, device, atol: float = CPU_ATOL,
     from istnet_tpu_torch.entry import build_model, make_inputs
     cpu = build_model("cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    inp = make_inputs(2, seed=7)
+    inp = make_inputs(2, seed=7, device="cpu")
     with torch.inference_mode():
         want = cpu(inp)
         got = model({k: v.to(device) for k, v in inp.items()})
@@ -906,6 +943,18 @@ def gather_yardstick(args):
     return lambda: [torch.index_select(table, 0, f) for f in flat]
 
 
+def three_nn_yardstick(args):
+    """``torch.cdist`` of the unknown to the known points and the 3
+    smallest of each row by ``topk``: a library search of the same
+    neighbours by another formula (direct differences, not the JAX form
+    whose rounding the kernel repeats, and no tie order), so it is no
+    library call of the same function and never goes into ``library_ms``;
+    the port never calls it."""
+    import torch
+    unknown, known = args[:2]
+    return lambda: torch.cdist(unknown, known).topk(3, largest=False)
+
+
 def _device_total(fn) -> float:
     """Device us of one call summed over its kernels, NaN where the trace
     held none of them."""
@@ -919,8 +968,9 @@ def _stage_split(name: str, kern, args, tag: str) -> dict:
     interpolation) stage by stage; FPS as ns a step; the grouping beside
     kernel 8 (the query alone, its lists stored as indices) and the
     ``index_select`` yardstick; the scatters by launch (the inversion, then
-    the gather) beside ``index_add_`` of the same rows. Returns the device
-    us read."""
+    the gather) beside ``index_add_`` of the same rows; kernels 3, 8 and 10
+    a call by FP or SA stage, kernel 10 beside the ``cdist`` + ``topk``
+    yardstick. Returns the device us read."""
     from istnet_tpu_torch.ops import dispatch
     if name in ("group_scatter", "interp_scatter"):
         sums = device_us(lambda: kern(*args))
@@ -953,6 +1003,17 @@ def _stage_split(name: str, kern, args, tag: str) -> dict:
               f"{q_us:.1f} us; index_select of the same rows {y_us:.1f} us "
               f"(yardstick)")
         return {"device": us, "query": q_us, "index_select": y_us}
+    if name in ("fp_interpolate", "ball_query", "three_nn"):
+        us = _device_total(lambda: kern(*args))
+        out = {"device": us}
+        note = ""
+        if name == "three_nn":
+            out["cdist_topk"] = _device_total(three_nn_yardstick(args))
+            note = (f"; cdist + topk of the same points "
+                    f"{out['cdist_topk']:.1f} us (yardstick)")
+        print(f"[timings] {tag}{name} {_label(name, args)}: device {us:.1f} "
+              f"us a call{note}")
+        return out
     return {}
 
 
@@ -1104,6 +1165,76 @@ def _check_step(model, opt, cfg, step, parts, before, stats, tag) -> None:
           f"BatchNorms took the EMA (momentum {m:.4g})")
 
 
+def phase_bf16_backward(device) -> None:
+    """The two autograd Functions with bf16 cotangents at the train step's
+    shapes (the bf16 train policy's; the float32 step sends none): the FP
+    interpolation of bf16 features, and the grouping of bf16 features into
+    bf16 outputs at SA 2-4, each against autograd through its plain op on
+    the card, on the same inputs and cotangents. Bounds: float32
+    gradients (points, centroids) FP_REL_TOL of the largest, as the
+    scatters (float32 sums of exact bf16 values in another order); the
+    bf16 features' gradients BF16_GRAD_TOL through the FP stages (both
+    round a float32 sum once: one bf16 ulp apart at most) and twice that
+    through the grouping (the plain op rounds each radius's sum to bf16 and
+    their sum again: two ulps)."""
+    import numpy as np
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.ops import pointnet2 as plain
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(8)
+    cases = train_kernel_cases(device)
+    for args, _ in cases["fp_interpolate"]:
+        unknown, known, feats = args
+        cot = _f32(rng.randn(*unknown.shape[:2], feats.shape[-1]),
+                   device).to(bf16)
+
+        def fp_grads(op):
+            f = feats.to(bf16).requires_grad_()
+            op(unknown, known, f).backward(cot)
+            return [f.grad]
+
+        _check_grads("fp_interpolate", _label("fp_interpolate", args),
+                     fp_grads(ops.fp_interpolate),
+                     fp_grads(plain.fp_interpolate), [BF16_GRAD_TOL])
+    for args, _ in cases["ball_query_group"]:
+        radii, nsamples, xyz, new_xyz, feats = args
+        if feats is None:
+            continue
+        b, m = new_xyz.shape[:2]
+        cots = [_f32(rng.randn(b, m, ns, 3 + feats.shape[-1]),
+                     device).to(bf16) for ns in nsamples]
+
+        def group_grads(op):
+            ins = [xyz.clone().requires_grad_(),
+                   new_xyz.clone().requires_grad_(),
+                   feats.to(bf16).requires_grad_()]
+            torch.autograd.backward(op(radii, nsamples, *ins, bf16), cots)
+            return [t.grad for t in ins]
+
+        _check_grads("ball_query_group", _label("ball_query_group", args),
+                     group_grads(ops.ball_query_group),
+                     group_grads(plain.ball_query_group),
+                     [FP_REL_TOL, FP_REL_TOL, 2 * BF16_GRAD_TOL])
+
+
+def _check_grads(name, label, got, want, tols) -> None:
+    """Gradients of one case, each in its plain op's dtype and within its
+    bound times the largest plain value."""
+    errs = []
+    for g, w, tol in zip(got, want, tols):
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        if g.dtype != w.dtype or not err <= tol * scale:
+            raise AssertionError(f"bf16 backward {name} {label}: {g.dtype} "
+                                 f"vs {w.dtype}, max abs err {err} (max "
+                                 f"|plain| {scale}, bound {tol:g})")
+        errs.append(f"{_dtype(g)} {err:.3g} (max {scale:.3g})")
+    print(f"[train-bf16-backward] {name} {label}: gradients match, max abs "
+          f"err " + ", ".join(errs))
+
+
 def phase_train_steps(device) -> dict:
     """3 default-recipe and 2 frozen-recipe steps at the training width;
     returns the launches of all 5 steps."""
@@ -1170,7 +1301,8 @@ def phase_train_reference(device) -> None:
         train_step,
     )
     cfg = TrainConfig()
-    batch = make_train_batch(REF_BATCH, REF_POINTS, REF_IMG, seed=5)
+    batch = make_train_batch(REF_BATCH, REF_POINTS, REF_IMG, seed=5,
+                             device="cpu")
     batch["inputs"]["pts"] = batch["inputs"]["pts"] * 0.3
     init = None
     runs = []
@@ -1261,7 +1393,8 @@ def phase_train_full_width(device) -> None:
         train_step,
     )
     cfg = TrainConfig()
-    batch = make_train_batch(FULL_REF_BATCH, TRAIN_POINTS, TRAIN_IMG, seed=6)
+    batch = make_train_batch(FULL_REF_BATCH, TRAIN_POINTS, TRAIN_IMG, seed=6,
+                             device="cpu")
     init = None
     runs = []
     t0 = time.perf_counter()
@@ -1753,8 +1886,10 @@ def main() -> int:
            list(serve16))
 
     with policy(torch.float32):
-        train_cases = with_bf16_scatter_twins(train_kernel_cases(device))
+        train_cases = with_three_nn_distances(
+            with_bf16_scatter_twins(train_kernel_cases(device)))
         errs_t = phase_kernels(train_cases, tag="train ")
+        phase_bf16_backward(device)
         times_t = time_kernels(train_cases, "train ")
         counts_t = phase_train_steps(device)
         phase_train_reference(device)

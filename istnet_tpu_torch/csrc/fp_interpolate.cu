@@ -10,15 +10,21 @@
 // 1/(sqrt(d2) + 1e-8) normalised over the three; out[u, :] the weighted sum
 // of the three feature rows.
 //
-// What bounds it: at the production stages the scan is N x M distance
-// evaluations (1024 x 512 at the last stage) and the output N x C floats;
-// both are small, so latency and occupancy matter more than peak rates.
-// Design: one warp per unknown point with the known set in shared memory
-// (M <= 512: 6 KB of coordinates plus 2 KB of norms). The search is
-// three_nn.cuh's, which the FP backward's 3-NN kernel (three_nn.cu) shares,
-// so forward and backward pick the same neighbours. The TPU kernel's
-// (TN, M) one-hot interpolation matrix and its MXU contraction are replaced
-// by three direct row loads per channel, lanes along channels.
+// What bounds it: the output rows, N x C values written once (33.5 MB of
+// the 50 MB a B=32 float32 forward moves at the last stage), and the known
+// rows read from L2; and the search, N x M distance tests (~22
+// instructions each, three_nn.cuh: ~15 us of issue a B=32 forward over the
+// four stages, more than the bytes take at their rate).
+// Design: the search is three_nn.cuh's, shared with the FP backward's 3-NN
+// kernel (three_nn.cu), so forward and backward pick the same neighbours:
+// a block stages its cloud's known set once and each thread searches for
+// its own point from shared-memory broadcasts. Then each warp writes its
+// points' rows: a point's (idx[3], w[3]) broadcast from the lane that found
+// them, lanes along channels with 16-byte loads and stores (4 float32 or 8
+// bf16 values a lane), kInFlight points at once; rows that are not 16-byte
+// aligned take a scalar instance. The TPU kernel's (TN, M) one-hot
+// interpolation matrix and its MXU contraction are replaced by these three
+// direct row loads a value.
 //
 // Types: points f32; features and output f32, or both bf16. The weights
 // stay f32 and the weighted sum accumulates in f32 from the exact upcast of
@@ -27,67 +33,171 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "three_nn.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // unknown points per block
+using istnet::kBlockThreads;
+using istnet::kGroup;
+using istnet::kWarpPoints;
+
+// points whose rows a warp gathers at once
+constexpr int kInFlightMax = 4;
+constexpr int kInFlight = kWarpPoints < kInFlightMax ? kWarpPoints : kInFlightMax;
+static_assert(kWarpPoints % kInFlight == 0, "whole steps of points");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ float mix(const float (&w)[3], float a, float b, float c) {
+  return w[0] * a + w[1] * b + w[2] * c;
+}
+
+// out <- w . (r0, r1, r2) for one 16-byte vector of each row.
+__device__ __forceinline__ uint4 mix_vec(const float (&w)[3], uint4 r0, uint4 r1,
+                                         uint4 r2, float) {
+  uint4 o;
+  o.x = __float_as_uint(mix(w, __uint_as_float(r0.x), __uint_as_float(r1.x),
+                            __uint_as_float(r2.x)));
+  o.y = __float_as_uint(mix(w, __uint_as_float(r0.y), __uint_as_float(r1.y),
+                            __uint_as_float(r2.y)));
+  o.z = __float_as_uint(mix(w, __uint_as_float(r0.z), __uint_as_float(r1.z),
+                            __uint_as_float(r2.z)));
+  o.w = __float_as_uint(mix(w, __uint_as_float(r0.w), __uint_as_float(r1.w),
+                            __uint_as_float(r2.w)));
+  return o;
+}
+
+__device__ __forceinline__ unsigned mix_pair(const float (&w)[3], unsigned a,
+                                             unsigned b, unsigned c) {
+  const float2 fa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a));
+  const float2 fb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b));
+  const float2 fc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&c));
+  const __nv_bfloat162 o = __floats2bfloat162_rn(mix(w, fa.x, fb.x, fc.x),
+                                                 mix(w, fa.y, fb.y, fc.y));
+  return *reinterpret_cast<const unsigned*>(&o);
+}
+
+__device__ __forceinline__ uint4 mix_vec(const float (&w)[3], uint4 r0, uint4 r1,
+                                         uint4 r2, __nv_bfloat16) {
+  uint4 o;
+  o.x = mix_pair(w, r0.x, r1.x, r2.x);
+  o.y = mix_pair(w, r0.y, r1.y, r2.y);
+  o.z = mix_pair(w, r0.z, r1.z, r2.z);
+  o.w = mix_pair(w, r0.w, r1.w, r2.w);
+  return o;
+}
+
+// One step of a warp's gather: kInFlight points' rows (live ones only),
+// lanes along channels; kVec: 16-byte vectors (rows and bases aligned).
+template <typename T, bool kVec>
+__device__ __forceinline__ void gather_rows(const T* __restrict__ f, int c,
+                                            const int (&idx)[kInFlight][3],
+                                            const float (&w)[kInFlight][3],
+                                            const bool (&live)[kInFlight],
+                                            T* (&o)[kInFlight], int lane) {
+  if constexpr (kVec) {
+    constexpr int kPer = 16 / sizeof(T);
+    const int nv = c / kPer;
+    for (int v = lane; v < nv; v += 32) {
+      uint4 r[kInFlight][3];
+#pragma unroll
+      for (int e = 0; e < kInFlight; ++e) {
+        if (!live[e]) continue;
+#pragma unroll
+        for (int x = 0; x < 3; ++x) {
+          r[e][x] = reinterpret_cast<const uint4*>(
+              f + static_cast<size_t>(idx[e][x]) * c)[v];
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kInFlight; ++e) {
+        if (!live[e]) continue;
+        reinterpret_cast<uint4*>(o[e])[v] = mix_vec(w[e], r[e][0], r[e][1], r[e][2], T());
+      }
+    }
+  } else {
+    for (int ch = lane; ch < c; ch += 32) {
+      float r[kInFlight][3];
+#pragma unroll
+      for (int e = 0; e < kInFlight; ++e) {
+        if (!live[e]) continue;
+#pragma unroll
+        for (int x = 0; x < 3; ++x) {
+          r[e][x] = to_f32(f[static_cast<size_t>(idx[e][x]) * c + ch]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kInFlight; ++e) {
+        if (live[e]) store(o[e] + ch, mix(w[e], r[e][0], r[e][1], r[e][2]));
+      }
+    }
+  }
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kBlockThreads)
 fp_interp_kernel(const float* __restrict__ unknown, const float* __restrict__ known,
                  const T* __restrict__ feats, int n, int m, int c,
                  T* __restrict__ out) {
-  extern __shared__ float s_known[];  // 3 * m coordinates, then m norms
-  float* s_norm = s_known + 3 * m;
+  extern __shared__ float4 s_known[];
   const int b = blockIdx.y;
-  istnet::load_known(known + static_cast<size_t>(b) * m * 3, m, s_known, s_norm);
-
-  const int lane = threadIdx.x & 31;
-  const int u = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (u >= n) return;  // whole warp leaves together; no barrier follows
-  const float* up = unknown + (static_cast<size_t>(b) * n + u) * 3;
-  float sel_d[3];
-  int sel_i[3];
-  istnet::warp_three_nn(s_known, s_norm, m, up[0], up[1], up[2], sel_d, sel_i);
-
+  // the group's point is loaded while the known set is staged
+  float3 u;
+  istnet::load_point(unknown, n, u);
+  istnet::stage_known(known + static_cast<size_t>(b) * m * 3, m, s_known);
+  const istnet::Nn3 s = istnet::group_three_nn(s_known, m, u);
   float w[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) w[r] = 1.0f / (sqrtf(sel_d[r]) + 1e-8f);
-  const float norm = (w[0] + w[1]) + w[2];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) w[r] = w[r] / norm;
+  istnet::nn_weights(s, w);
 
+  // the warp's kWarpPoints points, point p found by lanes [p * kGroup,
+  // (p + 1) * kGroup)
+  const int lane = threadIdx.x & 31;
+  const int warp_first =
+      static_cast<int>((blockIdx.x * blockDim.x + (threadIdx.x & ~31u)) / kGroup);
   const T* f = feats + static_cast<size_t>(b) * m * c;
-  const T* f0 = f + static_cast<size_t>(sel_i[0]) * c;
-  const T* f1 = f + static_cast<size_t>(sel_i[1]) * c;
-  const T* f2 = f + static_cast<size_t>(sel_i[2]) * c;
-  T* o = out + (static_cast<size_t>(b) * n + u) * c;
-  for (int ch = lane; ch < c; ch += 32) {
-    store(o + ch, w[0] * to_f32(f0[ch]) + w[1] * to_f32(f1[ch]) +
-                      w[2] * to_f32(f2[ch]));
+  for (int p = 0; p < kWarpPoints; p += kInFlight) {
+    int idx[kInFlight][3];
+    float wt[kInFlight][3];
+    bool live[kInFlight];
+    T* o[kInFlight];
+#pragma unroll
+    for (int e = 0; e < kInFlight; ++e) {
+      const int src = (p + e) * kGroup;
+#pragma unroll
+      for (int x = 0; x < 3; ++x) {
+        idx[e][x] = __shfl_sync(0xffffffffu, s.i[x], src);
+        wt[e][x] = __shfl_sync(0xffffffffu, w[x], src);
+      }
+      const int v = warp_first + p + e;
+      live[e] = v < n;
+      o[e] = out + (static_cast<size_t>(b) * n + min(v, n - 1)) * c;
+    }
+    gather_rows<T, kVec>(f, c, idx, wt, live, o, lane);
   }
 }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <typename T>
 cudaError_t launch(const float* unknown, const float* known, const void* feats,
                    int b, int n, int m, int c, void* out, cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(4) * m * sizeof(float);
+  const size_t smem = static_cast<size_t>(m) * sizeof(float4);
+  const bool vec = static_cast<size_t>(c) * sizeof(T) % 16 == 0 &&
+                   aligned16(feats) && aligned16(out);
+  auto kernel = vec ? fp_interp_kernel<T, true> : fp_interp_kernel<T, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fp_interp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((n + kWarps - 1) / kWarps, b);
-  fp_interp_kernel<T><<<grid, kWarps * 32, smem, s>>>(
-      unknown, known, static_cast<const T*>(feats), n, m, c,
-      static_cast<T*>(out));
+  const dim3 grid = istnet::nn_grid(b, n);
+  kernel<<<grid, kBlockThreads, smem, s>>>(unknown, known, static_cast<const T*>(feats),
+                                           n, m, c, static_cast<T*>(out));
   return cudaGetLastError();
 }
 

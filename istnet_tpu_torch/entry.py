@@ -6,6 +6,10 @@ Counterpart of ``__graft_entry__.entry()`` / ``_make_inputs``: the full-width
 a batch of instance crops (B=32, N=1024 points, 192 x 192 RGB) made from a
 numpy ``RandomState(seed)`` exactly as the JAX entry makes them.
 
+Every builder runs on the card (``device="cuda"``) unless the caller asks
+for the CPU (``device="cpu"``, the plain versions of the kernels), and
+raises without a card rather than fall back to the CPU.
+
 ``build_serving_model`` sets a compute policy first, as ``bench.py:96-99``
 sets the bf16 deployment precision before ``entry()``.
 ``build_train_model`` and ``make_train_batch`` give the train step's model
@@ -55,20 +59,32 @@ def _input_arrays(b: int, n: int, img: int, train: bool, seed: int) -> dict:
     return arrays
 
 
+def on_device(device: str | torch.device, name: str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises: the entry points run on the card unless asked for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: no CUDA card; pass device='cpu' for "
+                           f"the plain versions on the CPU")
+    return device
+
+
 def make_inputs(b: int = BATCH, n: int = NPOINTS, img: int = IMG,
-                seed: int = 0, device: str | torch.device = "cpu") -> dict:
+                seed: int = 0, device: str | torch.device = "cuda") -> dict:
     """The eval inputs of ``__graft_entry__._make_inputs(train=False)``."""
+    device = on_device(device, "make_inputs")
     return {k: torch.from_numpy(v).to(device)
             for k, v in _input_arrays(b, n, img, False, seed).items()}
 
 
 def make_train_batch(b: int = TRAIN_BATCH, n: int = NPOINTS, img: int = IMG,
-                     seed: int = 0, device: str | torch.device = "cpu"
+                     seed: int = 0, device: str | torch.device = "cuda"
                      ) -> dict:
     """``{"inputs", "labels"}``: the inputs of
     ``__graft_entry__._make_inputs(train=True)`` (with ``qo``) and the
     labels ``__graft_entry__.dryrun_multichip`` pairs them with (identity
     rotations, zero translations, unit sizes, ``qo``)."""
+    device = on_device(device, "make_train_batch")
     inputs = {k: torch.from_numpy(v).to(device)
               for k, v in _input_arrays(b, n, img, True, seed).items()}
     labels = {
@@ -117,11 +133,12 @@ def perturb_eval_stats_(model: nn.Module, seed: int = 0) -> None:
             m.weight.fill_(float(rng.uniform(0.1, 0.4)))
 
 
-def build_model(device: str | torch.device = "cpu", seed: int = 0,
+def build_model(device: str | torch.device = "cuda", seed: int = 0,
                 sa_npoints=SA_NPOINTS, nclass: int = NCLASS,
                 freeze_world_enhancer: bool = False) -> ISTNet:
     """Full-width ``ISTNet`` in eval mode on ``device``, random weights
     made from ``seed``."""
+    device = on_device(device, "build_model")
     model = ISTNet(nclass=nclass, sa_npoints=sa_npoints,
                    freeze_world_enhancer=freeze_world_enhancer)
     init_weights_(model, torch.Generator().manual_seed(seed))
@@ -129,22 +146,24 @@ def build_model(device: str | torch.device = "cpu", seed: int = 0,
     return model.eval().to(device)
 
 
-def build_train_model(device: str | torch.device = "cpu", seed: int = 0,
+def build_train_model(device: str | torch.device = "cuda", seed: int = 0,
                       freeze_world_enhancer: bool = False,
                       sa_npoints=SA_NPOINTS) -> ISTNet:
     """``build_model`` in train mode, under the float32 policy (the train
     step's; ``config/ist_net_default.yaml: compute_dtype: float32``)."""
+    device = on_device(device, "build_train_model")
     precision.set_compute_dtype(torch.float32)
     return build_model(device, seed, sa_npoints,
                        freeze_world_enhancer=freeze_world_enhancer).train()
 
 
 def build_serving_model(dtype: torch.dtype = torch.bfloat16,
-                        device: str | torch.device = "cpu", seed: int = 0,
+                        device: str | torch.device = "cuda", seed: int = 0,
                         sa_npoints=SA_NPOINTS) -> ISTNet:
     """``build_model`` under the compute policy ``dtype`` (bf16 by default,
     the deployment precision). The policy is global and read at every
     forward; ``precision.set_compute_dtype`` restores another one."""
+    device = on_device(device, "build_serving_model")
     precision.set_compute_dtype(dtype)
     return build_model(device, seed, sa_npoints)
 
@@ -207,9 +226,7 @@ def build_device_forward(dtype: torch.dtype = torch.float32,
     from istnet_tpu_torch.data.dataset import REAL_INTRINSICS
     from istnet_tpu_torch.eval.test_loop import make_device_forward
 
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_device_forward: no CUDA card; pass "
-                           "device='cpu' for the plain versions on the CPU")
+    device = on_device(device, "build_device_forward")
     model = build_serving_model(dtype, device, seed, sa_npoints)
     return model, make_device_forward(model, REAL_INTRINSICS,
                                       img_size=img_size,

@@ -95,8 +95,10 @@ ball_query_group_cuda.launches = 0
 class BallQueryGroup(torch.autograd.Function):
     """``apply(radii, nsamples, out_dtype, xyz, new_xyz, features)`` -> a
     tuple of per-radius grouped tensors, differentiable in ``xyz``,
-    ``new_xyz`` and ``features``. The backward takes float32 cotangents
-    (the float32 policy); the decisions carry no gradient."""
+    ``new_xyz`` and ``features``. The backward takes float32 or bf16
+    cotangents and sums them in float32 (``_bqg_bwd``'s bf16 branch): the
+    points' and centroids' gradients in their dtypes, the features' in
+    theirs; the decisions carry no gradient."""
 
     @staticmethod
     def forward(ctx, radii, nsamples, out_dtype, xyz, new_xyz, features):
@@ -110,9 +112,6 @@ class BallQueryGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         xyz, new_xyz = ctx.saved_tensors
-        if any(g.dtype != torch.float32 for g in grads):
-            raise TypeError("ball_query_group backward: float32 cotangents "
-                            "only (the float32 train policy)")
         idx_list = _bq.ball_query_multi_cuda(ctx.radii, ctx.nsamples,
                                              xyz.detach(), new_xyz.detach())
         points_bar, centroid_bar = _gs.group_scatter_cuda(idx_list, grads,

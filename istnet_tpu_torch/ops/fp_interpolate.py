@@ -11,11 +11,12 @@ dtype, with float32 weights and sums and one rounding to bf16.
 ``FPInterpolate`` is the op with its gradient, the counterpart of the
 ``jax.custom_vjp`` ``three_nn_pallas.fp_interpolate``: the forward is kernel
 3; the backward (``_fpi_bwd``) reruns the 3-NN search with kernel 10
-(``ops/three_nn.py``), forms the weights in plain torch and scatters
-``weight * cotangent`` with ``ops/interp_scatter.py``. Only the features
-get a gradient: the reference's ThreeNN is not differentiable. It takes
-CUDA tensors only, as ``ops/dispatch.py`` routes them; on the CPU the plain
-interpolation carries plain autograd.
+(``ops/three_nn.py``), whose weights variant writes the indices and the
+normalised weights in one launch, and scatters ``weight * cotangent`` with
+``ops/interp_scatter.py``. Only the features get a gradient: the
+reference's ThreeNN is not differentiable. It takes CUDA tensors only, as
+``ops/dispatch.py`` routes them; on the CPU the plain interpolation
+carries plain autograd.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from istnet_tpu_torch.ops import _build
 from istnet_tpu_torch.ops import interp_scatter as _scatter
 from istnet_tpu_torch.ops import three_nn as _tnn
 from istnet_tpu_torch.ops.pointnet2 import fp_interpolate as plain
-from istnet_tpu_torch.ops.pointnet2 import three_interpolate_weights
 from istnet_tpu_torch.ops.three_nn import MAX_KNOWN
 
 SOURCE = "istnet_tpu_torch/csrc/fp_interpolate.cu"
@@ -66,8 +66,9 @@ fp_interpolate_cuda.launches = 0
 
 class FPInterpolate(torch.autograd.Function):
     """``apply(unknown, known, feats)`` -> ``(B, N, C)``, differentiable in
-    ``feats`` (float32 cotangents, the float32 policy); ``unknown`` and
-    ``known`` get no gradient."""
+    ``feats``: float32 or bf16 cotangents, summed in float32, the gradient
+    in ``feats``' dtype (``_fpi_bwd`` returns ``g.dtype``, which is the
+    features' dtype there); ``unknown`` and ``known`` get no gradient."""
 
     @staticmethod
     def forward(ctx, unknown, known, feats):
@@ -78,10 +79,7 @@ class FPInterpolate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         unknown, known = ctx.saved_tensors
-        if grad.dtype != torch.float32:
-            raise TypeError("fp_interpolate backward: float32 cotangents "
-                            "only (the float32 train policy)")
-        dist, idx = _tnn.three_nn_cuda(unknown.detach(), known.detach())
-        weight = three_interpolate_weights(dist)
+        weight, idx = _tnn.three_nn_cuda(unknown.detach(), known.detach(),
+                                         weights=True)
         feats_bar = _scatter.interp_scatter_cuda(grad, idx, weight, ctx.m)
         return None, None, feats_bar.to(ctx.feat_dtype)

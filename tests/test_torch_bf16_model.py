@@ -57,7 +57,7 @@ def _set_dense_biases(tree, rng, inside=False):
 
 @pytest.fixture(scope="module")
 def models():
-    src = build_model(sa_npoints=NPOINTS, seed=5)
+    src = build_model(sa_npoints=NPOINTS, seed=5, device="cpu")
     trees = C.convert_state_dict(
         {k: v.numpy() for k, v in src.state_dict().items()})
     _set_dense_biases(trees["params"], np.random.RandomState(5))
@@ -141,7 +141,7 @@ def forward_bf16(models):
     calls = []
     from istnet_tpu.models.ist_net import ISTNet as JaxISTNet
 
-    inputs = make_inputs(2, 256, 48, seed=11)
+    inputs = make_inputs(2, 256, 48, seed=11, device="cpu")
     real = jax_ops.sa_msg_fused
     old_j, old_t = jax_precision.compute_dtype(), precision.compute_dtype()
     jax_ops.sa_msg_fused = _interpret_fused(calls)
@@ -190,7 +190,7 @@ def test_fused_sa_runs_only_under_bf16_at_eval(models, monkeypatch):
     the fused kernel; bf16 takes it at SA stages 2-4 and not at stage 1."""
     port, _ = models
     calls = _spy_port_fused(monkeypatch)
-    inputs = make_inputs(1, 256, 48, seed=2)
+    inputs = make_inputs(1, 256, 48, seed=2, device="cpu")
     old = precision.compute_dtype()
     try:
         precision.set_compute_dtype(torch.float32)
@@ -226,10 +226,11 @@ def test_bf16_policy_sets_f32_accumulation_and_refuses_other_dtypes():
 def test_build_serving_model_sets_the_policy():
     old = precision.compute_dtype()
     try:
-        model = build_serving_model(torch.bfloat16, sa_npoints=(16, 8, 8, 8))
+        model = build_serving_model(torch.bfloat16, "cpu",
+                                    sa_npoints=(16, 8, 8, 8))
         assert precision.compute_dtype() == torch.bfloat16
         with torch.no_grad():
-            out = model(make_inputs(1, 64, 48, seed=1))
+            out = model(make_inputs(1, 64, 48, seed=1, device="cpu"))
         assert all(v.dtype == torch.float32 for v in out.values())
     finally:
         precision.set_compute_dtype(old)
@@ -269,7 +270,7 @@ def test_chip_smoke_checks_the_bf16_kernels_at_the_path_shapes(monkeypatch):
     try:
         precision.set_compute_dtype(torch.bfloat16)
         with torch.no_grad():
-            build_model()(make_inputs(1))
+            build_model(device="cpu")(make_inputs(1, device="cpu"))
     finally:
         precision.set_compute_dtype(old)
     bf = torch.bfloat16
@@ -344,7 +345,7 @@ def test_sa_module_refolds_when_its_weights_change(change):
     """``PointnetSAModuleMSG.folded`` packs once and hands the same object
     back until a parameter or buffer it was made from changes."""
     from istnet_tpu_torch.ops.sa_fused import PackedFolded
-    sa = build_model(sa_npoints=SMALL, seed=3).eval() \
+    sa = build_model(sa_npoints=SMALL, seed=3, device="cpu").eval() \
         .pts_cam_extractor.SA_modules[2]
     with torch.no_grad():
         first = sa.folded()
@@ -385,7 +386,7 @@ def test_derived_cache_keeps_its_sources_alive():
 
 
 def test_sa_module_folds_anew_while_a_graph_is_recorded():
-    sa = build_model(sa_npoints=SMALL, seed=3).eval() \
+    sa = build_model(sa_npoints=SMALL, seed=3, device="cpu").eval() \
         .pts_cam_extractor.SA_modules[1]
     with torch.enable_grad():
         folded = sa.folded()
@@ -396,8 +397,8 @@ def test_sa_module_folds_anew_while_a_graph_is_recorded():
 
 def test_up_2_repacks_when_its_weights_or_the_policy_change():
     from istnet_tpu_torch.ops.fold_upsample import PackedFold, pack_kernel
-    up = build_model(sa_npoints=SMALL, seed=3).eval().rgb_cam_extractor \
-        .model.up_2
+    up = build_model("cpu", sa_npoints=SMALL, seed=3).eval() \
+        .rgb_cam_extractor.model.up_2
     old = precision.compute_dtype()
     try:
         with torch.no_grad():
@@ -430,7 +431,7 @@ def test_bf16_forward_with_the_caches_equals_the_forward_without(monkeypatch):
     model's."""
     from istnet_tpu_torch.nn.layers import DerivedCache
     rng = np.random.RandomState(11)
-    inputs = make_inputs(2, 128, 48, seed=4)
+    inputs = make_inputs(2, 128, 48, seed=4, device="cpu")
     inputs["pts"] = torch.from_numpy(
         (rng.randn(2, 128, 3) * 0.03).astype(np.float32))
 
@@ -441,16 +442,16 @@ def test_bf16_forward_with_the_caches_equals_the_forward_without(monkeypatch):
     old = precision.compute_dtype()
     precision.set_compute_dtype(torch.bfloat16)
     try:
-        model = build_model(sa_npoints=SMALL, seed=2)
+        model = build_model(sa_npoints=SMALL, seed=2, device="cpu")
         cached = [run(model), run(model)]             # build, then reuse
         packs = [sa._folded._value for sa in model.pts_cam_extractor.SA_modules]
         assert packs[0] is None and all(p is not None for p in packs[1:])
-        other = build_model(sa_npoints=SMALL, seed=6)
+        other = build_model(sa_npoints=SMALL, seed=6, device="cpu")
         model.load_state_dict(other.state_dict())
         reloaded = run(model)
         monkeypatch.setattr(DerivedCache, "get",
                             lambda self, tensors, extra, build: build())
-        model2 = build_model(sa_npoints=SMALL, seed=2)
+        model2 = build_model(sa_npoints=SMALL, seed=2, device="cpu")
         plain_run, other_run = run(model2), run(other)
         assert all(sa._folded._value is None
                    for sa in model2.pts_cam_extractor.SA_modules)

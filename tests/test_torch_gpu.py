@@ -279,8 +279,8 @@ def test_dispatch_ops_are_differentiable_on_the_card(cuda):
 
 
 def test_card_forward_matches_cpu_forward(cuda):
-    model = build_model(sa_npoints=(32, 16, 8, 8), seed=2)
-    inputs = make_inputs(2, 128, 48, seed=4)
+    model = build_model(sa_npoints=(32, 16, 8, 8), seed=2, device="cpu")
+    inputs = make_inputs(2, 128, 48, seed=4, device="cpu")
     with torch.no_grad():
         want = model(inputs)
         model.to(cuda)
@@ -418,8 +418,8 @@ def test_fold_upsample_kernel_bf16(cuda, b, h, w, cin, cout, with_ep):
 
 
 def test_card_bf16_forward_matches_cpu_bf16_forward(cuda):
-    model = build_model(sa_npoints=(32, 16, 8, 8), seed=2)
-    inputs = make_inputs(2, 128, 48, seed=4)
+    model = build_model(sa_npoints=(32, 16, 8, 8), seed=2, device="cpu")
+    inputs = make_inputs(2, 128, 48, seed=4, device="cpu")
     old = precision.compute_dtype()
     precision.set_compute_dtype(torch.bfloat16)
     try:
@@ -483,6 +483,172 @@ def test_three_nn_kernel(cuda, n, m):
     dist, idx = dispatch.wrapper("three_nn")(unknown, known)
     w_dist, w_idx = plain.three_nn(unknown, known)
     assert torch.equal(idx, w_idx) and torch.equal(dist, w_dist)
+
+
+def _fp_stage(seed, b, n, m, device):
+    """An FP stage's points: ``n`` unknown ones and ``m`` known ones drawn
+    from them (an FP stage's known points are the stage below's FPS
+    picks: distances of exactly 0), or new ones where ``m > n``."""
+    rng = np.random.RandomState(seed)
+    unknown = _f32(rng.randn(b, n, 3) * 0.1, device)
+    if m > n:
+        return unknown, _f32(rng.randn(b, m, 3) * 0.1, device)
+    pick = torch.from_numpy(rng.permutation(n)[:m]).to(device)
+    return unknown, unknown[:, pick].contiguous()
+
+
+def _check_three_nn(unknown, known):
+    """Both variants of kernel 10 against the plain version: distances and
+    indices equal; the weights within 2 ulp of ``three_interpolate_weights``
+    of the plain distances (float32 sums of 3 in another order)."""
+    kern = dispatch.wrapper("three_nn")
+    w_dist, w_idx = plain.three_nn(unknown, known)
+    dist, idx = kern(unknown, known)
+    assert dist.dtype == torch.float32 and idx.dtype == torch.int32
+    assert torch.equal(idx, w_idx) and torch.equal(dist, w_dist)
+    weight, idx_w = kern(unknown, known, weights=True)
+    want = plain.three_interpolate_weights(w_dist)
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, np.inf)) \
+        - want.abs()
+    assert torch.equal(idx_w, w_idx)
+    assert ((weight - want).abs() <= 2 * ulp).all()
+
+
+@pytest.mark.parametrize("b", [32, 8, 24])
+@pytest.mark.parametrize("n,m", [(128, 64), (256, 128), (512, 256),
+                                 (1024, 512), (2048, 512), (2048, 1024)])
+def test_three_nn_kernel_path_shapes(cuda, b, n, m):
+    """FP 1-4 of the eval forward (B=32), the serving bucket (8) and the
+    train step (24), and FP 4 of 2048-point clouds (SA 1 at 512 or 1024
+    points)."""
+    _check_three_nn(*_fp_stage(13, b, n, m, cuda))
+
+
+@pytest.mark.parametrize("n,m", [(500, 3), (64, 5), (777, 37), (129, 1023),
+                                 (300, 8192), (1000, 8191), (1, 4)])
+def test_three_nn_kernel_known_set_sizes(cuda, n, m):
+    """The smallest known set, sizes that are no multiple of the group or
+    of the unrolled step, the largest that shared memory holds, one
+    unknown point."""
+    _check_three_nn(*_fp_stage(14, 2, n, m, cuda))
+
+
+@pytest.mark.parametrize("case", ["duplicates", "grid"])
+def test_three_nn_kernel_ties(cuda, case):
+    """Equal distances: known points duplicated in the cloud (the unknown
+    ones among them, so ties at distance 0), and points on a coarse grid,
+    exact in float32, where many distances are equal."""
+    rng = np.random.RandomState(15)
+    if case == "duplicates":
+        base = rng.randn(2, 90, 3) * 0.1
+        known = np.concatenate([base, base[:, ::-1], base[:, :7]], axis=1)
+        known = known[:, rng.permutation(known.shape[1])]
+        unknown = np.concatenate([base, rng.randn(2, 50, 3) * 0.1], axis=1)
+    else:
+        known = rng.randint(-3, 4, size=(2, 300, 3)) * 0.25
+        unknown = rng.randint(-3, 4, size=(2, 400, 3)) * 0.125
+    _check_three_nn(_f32(unknown, cuda), _f32(known, cuda))
+
+
+def _check_fp(unknown, known, feats):
+    got = ops.fp_interpolate(unknown, known, feats)
+    want = plain.fp_interpolate(unknown, known, feats)
+    tol = 2.0 ** -8 if feats.dtype == torch.bfloat16 else 1e-5
+    assert got.dtype == feats.dtype and got.shape == want.shape
+    assert ((got.float() - want.float()).abs().max()
+            <= tol * want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [37, 125, 256, 512, 517])
+def test_fp_interpolate_kernel_widths(cuda, c, dtype):
+    """Rows of 16-byte vectors (C = 256, 512) and rows that take the scalar
+    instance (C = 37, 125, 517), against the plain version within 1e-5
+    (float32) or 2^-8 (bf16) of the largest value."""
+    unknown, known = _fp_stage(16, 3, 700, 300, cuda)
+    rng = np.random.RandomState(c)
+    _check_fp(unknown, known, _f32(rng.randn(3, 300, c), cuda).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fp_interpolate_kernel_features_off_a_16_byte_boundary(cuda, dtype):
+    """Features that start off a 16-byte boundary (8 bytes for float32, 4
+    for bf16) take the scalar instance and give the same values as the
+    aligned copy."""
+    unknown, known = _fp_stage(17, 2, 300, 100, cuda)
+    rng = np.random.RandomState(18)
+    flat = _f32(rng.randn(2 * 100 * 64 + 2), cuda).to(dtype)
+    feats = flat[2:].view(2, 100, 64)
+    assert feats.data_ptr() % 16 != 0
+    _check_fp(unknown, known, feats)
+    assert torch.equal(ops.fp_interpolate(unknown, known, feats),
+                       ops.fp_interpolate(unknown, known, feats.clone()))
+
+
+@pytest.mark.parametrize("b,n,m,c", [(32, 128, 64, 512), (8, 1024, 512, 256),
+                                     (24, 512, 256, 256), (2, 2048, 1024, 64),
+                                     (2, 777, 3, 16), (2, 100, 8192, 8)])
+def test_fp_interpolate_kernel_shapes(cuda, b, n, m, c):
+    unknown, known = _fp_stage(19, b, n, m, cuda)
+    rng = np.random.RandomState(20)
+    feats = rng.randn(b, m, c)
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_fp(unknown, known, _f32(feats, cuda).to(dtype))
+
+
+def test_fp_interpolate_bf16_cotangent_gradient(cuda):
+    """``FPInterpolate`` with bf16 features and a bf16 cotangent: the
+    gradient is bf16 and equals autograd through the plain op on the same
+    card to 2^-7 of its largest value (both sum in float32 and round once
+    to bf16, in another order: one bf16 ulp apart at most)."""
+    unknown, known = _fp_stage(21, 4, 512, 256, cuda)
+    rng = np.random.RandomState(22)
+    feats = _f32(rng.randn(4, 256, 131), cuda).to(torch.bfloat16)
+    cot = _f32(rng.randn(4, 512, 131), cuda).to(torch.bfloat16)
+
+    def grad(op):
+        f = feats.clone().requires_grad_()
+        op(unknown, known, f).backward(cot)
+        return f.grad
+
+    got, want = grad(ops.fp_interpolate), grad(plain.fp_interpolate)
+    assert ops.launch_counts()["three_nn"] == 1
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert ((got.float() - want.float()).abs().max()
+            <= 2.0 ** -7 * want.float().abs().max())
+
+
+@pytest.mark.parametrize("with_features", [False, True])
+def test_ball_query_group_bf16_cotangent_gradient(cuda, with_features):
+    """``BallQueryGroup`` with bf16 outputs and cotangents: the points' and
+    centroids' gradients are float32 and equal autograd through the plain
+    op on the same card to 1e-5 of their largest value (float32 sums of
+    exact bf16 values in another order); the bf16 features' gradient to
+    2^-6 (the plain op rounds each radius's sum to bf16 and their sum
+    again, the kernel rounds the float32 total once: two bf16 ulps)."""
+    rng = np.random.RandomState(23)
+    xyz = rng.randn(2, 512, 3) * 0.1
+    cent = xyz[:, :256] + rng.randn(2, 256, 3) * 0.01
+    cf = 64 if with_features else 0
+    feats = rng.randn(2, 512, cf)
+    cots = [_f32(rng.randn(2, 256, ns, 3 + cf), cuda).to(torch.bfloat16)
+            for ns in (16, 32)]
+
+    def grads(op):
+        ins = [_f32(xyz, cuda).requires_grad_(),
+               _f32(cent, cuda).requires_grad_()]
+        f = (_f32(feats, cuda).to(torch.bfloat16).requires_grad_()
+             if with_features else None)
+        outs = op((0.02, 0.04), (16, 32), *ins, f, torch.bfloat16)
+        torch.autograd.backward(outs, cots)
+        return [t.grad for t in ins] + ([f.grad] if with_features else [])
+
+    got, want = grads(ops.ball_query_group), grads(plain.ball_query_group)
+    assert ops.launch_counts()["group_scatter"] == 1
+    for g, w, tol in zip(got, want, (1e-5, 1e-5, 2.0 ** -6)):
+        assert g.dtype == w.dtype
+        err = (g.float() - w.float()).abs().max()
+        assert err <= tol * w.float().abs().max()
 
 
 @pytest.mark.parametrize("n,m,c", [(1024, 512, 256), (500, 70, 37)])
@@ -677,7 +843,7 @@ def test_card_train_step_matches_cpu_train_step(cuda):
     largest gradient is above 1e-5 of the largest of all (below it sit
     gradients of rounding noise and sums that cancel)."""
     cfg = TrainConfig()
-    batch = make_train_batch(2, 128, 48, seed=5)
+    batch = make_train_batch(2, 128, 48, seed=5, device="cpu")
     batch["inputs"]["pts"] = batch["inputs"]["pts"] * 0.3
     runs, init = [], None
     for device in ("cpu", cuda):

@@ -49,14 +49,14 @@ def _set_dense_biases(tree, rng, inside=False):
 
 @pytest.fixture(scope="module")
 def slice_outputs():
-    src = build_model(sa_npoints=TINY, seed=5)
+    src = build_model(sa_npoints=TINY, seed=5, device="cpu")
     trees = C.convert_state_dict(
         {k: v.numpy() for k, v in src.state_dict().items()})
     _set_dense_biases(trees["params"], np.random.RandomState(5))
     port = ISTNet(sa_npoints=TINY)
     port.load_state_dict(state_dict_from_jax(trees), strict=True)
     port.eval()
-    inputs = make_inputs(2, 128, 48, seed=11)
+    inputs = make_inputs(2, 128, 48, seed=11, device="cpu")
 
     from istnet_tpu.models.ist_net import ISTNet as JaxISTNet
 
@@ -150,7 +150,7 @@ def test_reference_layout_state_dict_loads_strictly():
 
 
 def test_bridge_folds_dense_bias_into_bn_mean():
-    src = build_model(sa_npoints=TINY, seed=1)
+    src = build_model(sa_npoints=TINY, seed=1, device="cpu")
     trees = C.convert_state_dict(
         {k: v.numpy() for k, v in src.state_dict().items()})
     dense = trees["params"]["pts_cam_extractor"]["PointnetFPModule_0"][
@@ -169,10 +169,44 @@ def test_make_inputs_equals_the_jax_entry():
     import __graft_entry__ as g
 
     want = g._make_inputs(2, 64, 24, train=False, seed=3)
-    got = make_inputs(2, 64, 24, seed=3)
+    got = make_inputs(2, 64, 24, seed=3, device="cpu")
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+@pytest.mark.parametrize("builder,args", [
+    ("make_inputs", (1, 16, 8)),
+    ("make_train_batch", (1, 16, 8)),
+    ("build_model", ()),
+    ("build_train_model", ()),
+    ("build_serving_model", (torch.float32,)),
+])
+def test_entry_points_run_on_the_card_unless_asked(monkeypatch, builder,
+                                                   args):
+    """Every builder of ``entry.py`` defaults to the card and, on a host
+    without one, raises rather than fall back to the CPU; the CPU is an
+    explicit request."""
+    from istnet_tpu_torch import entry
+    from istnet_tpu_torch.nn import precision
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = getattr(entry, builder)
+    kw = {} if builder.startswith("make") else {"sa_npoints": (16, 8, 8, 8)}
+    old = precision.compute_dtype()
+    try:
+        with pytest.raises(RuntimeError, match=f"{builder}: no CUDA card"):
+            fn(*args, **kw)
+        out = fn(*args, device="cpu", **kw)
+    finally:
+        precision.set_compute_dtype(old)
+    if isinstance(out, torch.nn.Module):
+        tensors = list(out.parameters())
+    elif builder == "make_inputs":
+        tensors = list(out.values())
+    else:
+        tensors = [*out["inputs"].values(), *out["labels"].values()]
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
 def test_importing_the_port_leaves_jax_out():
@@ -187,8 +221,9 @@ def test_importing_the_port_leaves_jax_out():
         "import istnet_tpu_torch.ops.group_scatter\n"
         "import istnet_tpu_torch.ops.interp_scatter\n"
         "import chip_smoke\n"
-        "m = istnet_tpu_torch.entry.build_model(sa_npoints=(16, 8, 8, 8))\n"
-        "t = istnet_tpu_torch.entry.build_train_model(sa_npoints=(16, 8, 8, 8))\n"
+        "e = istnet_tpu_torch.entry\n"
+        "m = e.build_model('cpu', sa_npoints=(16, 8, 8, 8))\n"
+        "t = e.build_train_model('cpu', sa_npoints=(16, 8, 8, 8))\n"
         "ts.make_optimizer(t, ts.TrainConfig())\n"
         "bad = [n for n in ('jax', 'flax', 'istnet_tpu') if n in sys.modules]\n"
         "assert not bad, bad\n")
@@ -224,7 +259,7 @@ def test_chip_smoke_checks_the_kernels_at_the_path_shapes(monkeypatch):
         "fold_upsample", ops.fold_upsample_conv,
         lambda x, packed: (*x.shape[1:], packed.k.shape[-1])))
     with torch.no_grad():
-        build_model()(make_inputs(1))
+        build_model(device="cpu")(make_inputs(1, device="cpu"))
     assert seen == {"fps": list(chip_smoke.FPS_SHAPES),
                     "ball_query_group": list(chip_smoke.BQG_SHAPES),
                     "fp_interpolate": list(chip_smoke.FP_SHAPES),
@@ -269,8 +304,10 @@ def test_chip_smoke_checks_the_train_kernels_at_the_path_shapes(monkeypatch):
     monkeypatch.setattr(pointnet2_msg.ops, "furthest_point_sample", fps)
     monkeypatch.setattr(pointnet2_msg.ops, "ball_query_group", group)
     monkeypatch.setattr(pointnet2_msg.ops, "fp_interpolate", fp)
-    model = build_train_model(seed=0, sa_npoints=chip_smoke.TRAIN_SA_NPOINTS)
-    model(make_train_batch(1, chip_smoke.TRAIN_POINTS, chip_smoke.TRAIN_IMG)[
+    model = build_train_model("cpu", seed=0,
+                              sa_npoints=chip_smoke.TRAIN_SA_NPOINTS)
+    model(make_train_batch(1, chip_smoke.TRAIN_POINTS, chip_smoke.TRAIN_IMG,
+                           device="cpu")[
         "inputs"], torch.Generator().manual_seed(0))
 
     cases = chip_smoke.train_kernel_cases("cpu")

@@ -41,7 +41,7 @@ def _set_dense_biases(tree, rng, inside=False):
 
 
 def _jax_variables(seed: int = 3):
-    src = build_model(sa_npoints=TINY, seed=seed)
+    src = build_model(sa_npoints=TINY, seed=seed, device="cpu")
     trees = C.convert_state_dict(
         {k: v.numpy() for k, v in src.state_dict().items()})
     _set_dense_biases(trees["params"], np.random.RandomState(seed))

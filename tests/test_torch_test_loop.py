@@ -56,7 +56,7 @@ def _set_dense_biases(tree, rng, inside=False):
 
 @pytest.fixture(scope="module")
 def models():
-    src = build_model(sa_npoints=TINY, seed=3)
+    src = build_model(sa_npoints=TINY, seed=3, device="cpu")
     trees = C.convert_state_dict(
         {k: v.numpy() for k, v in src.state_dict().items()})
     _set_dense_biases(trees["params"], np.random.RandomState(3))

@@ -71,7 +71,7 @@ def _dense_biases(tree, inside=False, path=""):
 
 
 def _trees(seed):
-    src = build_model(sa_npoints=TINY, seed=seed)
+    src = build_model(sa_npoints=TINY, seed=seed, device="cpu")
     trees = C.convert_state_dict(
         {k: v.numpy() for k, v in src.state_dict().items()})
     _set_dense_biases(trees["params"], np.random.RandomState(seed))
@@ -236,7 +236,7 @@ def test_dropout_draws_from_the_step_generator():
     """In training the three Dropout2d applications change the outputs and
     draw their masks from the generator the step passes: the same seed
     gives the same outputs."""
-    model = build_model(sa_npoints=TINY, seed=3).train()
+    model = build_model(sa_npoints=TINY, seed=3, device="cpu").train()
     inputs = _torch(_batch(1))["inputs"]
     with torch.no_grad():
         a = model(inputs, torch.Generator().manual_seed(5))["pred_qo"]
@@ -250,13 +250,14 @@ def test_dropout_draws_from_the_step_generator():
 def test_frozen_step_trains_everything_but_the_world_enhancer():
     cfg = TrainConfig.frozen()
     model = build_model(sa_npoints=TINY, seed=4,
-                        freeze_world_enhancer=True).train()
+                        freeze_world_enhancer=True, device="cpu").train()
     before = {k: v.clone() for k, v in model.state_dict().items()}
     opt = make_optimizer(model, cfg)
     assert not any(p is q for g in opt.param_groups for p in g["params"]
                    for q in model.world_enhancer.parameters())
     ops.reset_launch_counts()
-    parts = train_step(model, opt, make_train_batch(B, N, IMG, seed=2), 0,
+    parts = train_step(model, opt,
+                       make_train_batch(B, N, IMG, seed=2, device="cpu"), 0,
                        torch.Generator().manual_seed(0), cfg)
     assert set(parts) == {"pose", "aux_cam", "qo", "feat", "total"}
     assert all(torch.isfinite(v) for v in parts.values())
@@ -274,11 +275,11 @@ def test_frozen_step_trains_everything_but_the_world_enhancer():
 
 def test_scheduled_ema_updates_every_batch_norm():
     cfg = TrainConfig(decay_step=1)
-    model = build_model(sa_npoints=TINY, seed=6).train()
+    model = build_model(sa_npoints=TINY, seed=6, device="cpu").train()
     bns = batch_norms(model)
     old = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in bns]
     train_step(model, make_optimizer(model, cfg),
-               make_train_batch(B, N, IMG, seed=3), 1,
+               make_train_batch(B, N, IMG, seed=3, device="cpu"), 1,
                torch.Generator().manual_seed(1), cfg)
     m = cfg.momentum(1)
     assert m == np.float32(0.45)

@@ -77,56 +77,47 @@ SWEEP_SOURCES = ("common.cu", "group_scatter.cu", "interp_scatter.cu",
 def sweep(cases) -> None:
     """Each SWEEP variant built into the package's build directory and its
     two scatters timed on the step's float32 calls."""
+    from _sweep_torch import edited_build
+
     from istnet_tpu_torch.ops import _build, group_scatter, interp_scatter
     from istnet_tpu_torch.ops import pointnet2 as plain
 
     import chip_smoke as cs
-    csrc, build = _build.CSRC, _build.BUILD
     for name, (checked, edits) in SWEEP.items():
-        root = build / "sweep" / name.replace(" ", "_")
-        (root / "csrc").mkdir(parents=True, exist_ok=True)
-        for src in SWEEP_SOURCES:
-            text = (csrc / src).read_text()
-            for file, old, new in edits:
-                if file == src:
-                    if old not in text:
-                        raise ValueError(f"{name}: {old!r} not in {src}")
-                    text = text.replace(old, new)
-            (root / "csrc" / src).write_text(text)
-        _build.CSRC, _build.BUILD = root / "csrc", root / "lib"
-        _build._lib = None
-        _build._fns.clear()
-        _build.build_info.clear()
-        group_scatter._workspace_bytes.cache_clear()
-        interp_scatter._workspace_bytes.cache_clear()
-        totals: dict = {}
-        lines = []
-        for kname, kern, ref in (
-                ("group_scatter", group_scatter.group_scatter_cuda,
-                 plain.group_scatter),
-                ("interp_scatter", interp_scatter.interp_scatter_cuda,
-                 plain.three_interpolate_grad)):
-            for args, launches in cases[kname]:
-                if not launches:
-                    continue
-                if checked:
-                    got, want = kern(*args), ref(*args)
-                    for g, w in zip(*((got, want) if kname == "group_scatter"
-                                      else ([got], [want]))):
-                        err = (g - w).abs().max().item()
-                        if err > cs.SCATTER_TOL * w.abs().max().item():
-                            raise AssertionError(f"{name} {kname}: {err}")
-                by_kernel = cs.device_us(lambda: kern(*args))
-                for k, v in by_kernel.items():
-                    totals[k] = totals.get(k, 0.0) + v * launches
-                lines.append(f"{kname} {cs._label(kname, args)}: " + ", ".join(
-                    f"{k} {v:.1f}" for k, v in sorted(by_kernel.items())))
-        print(f"sweep {name!r} (built in {_build.build_info.get('seconds', 0):.1f}"
-              f" s): step sums " + ", ".join(f"{k} {v:.1f}" for k, v in
-                                             sorted(totals.items())))
+        with edited_build(name, edits, SWEEP_SOURCES):
+            group_scatter._workspace_bytes.cache_clear()
+            interp_scatter._workspace_bytes.cache_clear()
+            totals: dict = {}
+            lines = []
+            for kname, kern, ref in (
+                    ("group_scatter", group_scatter.group_scatter_cuda,
+                     plain.group_scatter),
+                    ("interp_scatter", interp_scatter.interp_scatter_cuda,
+                     plain.three_interpolate_grad)):
+                for args, launches in cases[kname]:
+                    if not launches:
+                        continue
+                    if checked:
+                        got, want = kern(*args), ref(*args)
+                        for g, w in zip(*((got, want)
+                                          if kname == "group_scatter"
+                                          else ([got], [want]))):
+                            err = (g - w).abs().max().item()
+                            if err > cs.SCATTER_TOL * w.abs().max().item():
+                                raise AssertionError(f"{name} {kname}: {err}")
+                    by_kernel = cs.device_us(lambda: kern(*args))
+                    for k, v in by_kernel.items():
+                        totals[k] = totals.get(k, 0.0) + v * launches
+                    lines.append(f"{kname} {cs._label(kname, args)}: "
+                                 + ", ".join(f"{k} {v:.1f}" for k, v in
+                                             sorted(by_kernel.items())))
+            seconds = _build.build_info.get("seconds", 0)
+        print(f"sweep {name!r} (built in {seconds:.1f} s): step sums "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sorted(totals.items())))
         for line in lines:
             print(f"  {line}")
-    _build.CSRC, _build.BUILD = csrc, build
+    group_scatter._workspace_bytes.cache_clear()
+    interp_scatter._workspace_bytes.cache_clear()
 
 
 def build_variants():
