@@ -73,7 +73,9 @@ float32 policy and, for 11-13, the bf16 one too:
    columns, at a width that is no multiple of 128, at 5 x 5 and on an
    all-zero frame: without the bilateral filter equal, with it within
    1e-5 m; and against the port's OpenCV pipeline on one frame within 1 mm;
-   then every kernel of the path at the serving bucket of 8;
+   then every kernel of the path at the serving bucket of 8 (kernel 11's
+   device time launch by launch on the serving frame, the 35%-hole frame
+   and 24 such frames; kernel 8's query by SA stage beside the grouping);
 12. device forward: one synthetic 480 x 640 frame of 6 instances (one with
    a 9-pixel mask) padded to a bucket of 8 through depth fill, crop, sample,
    back-projection, resize and the full-width eval forward; outputs finite,
@@ -923,6 +925,49 @@ def device_us(fn, iters: int = 10) -> dict:
     return sums
 
 
+def _launch_name(name: str) -> str:
+    """A device event's kernel name without its namespace, template
+    arguments and parameters; the event's own name where it has none (a
+    memset)."""
+    m = re.search(r"(\w+)(?:<[^()]*>)?\(", name)
+    return m.group(1) if m else name
+
+
+def launch_us(fn, iters: int = 10) -> list:
+    """Device microseconds of each launch of one call of ``fn``, in launch
+    order: ``[(kernel name, us)]``, each launch's median over ``iters``
+    calls of torch.profiler's device events (kernels and memsets). The
+    trace holds ``iters + 1`` calls, the first there to be lost (as in
+    ``device_us``); ``[]`` where the events left do not line up call by
+    call."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters + 1):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, _launch_name(e.name),
+                     e.time_range.end - e.time_range.start)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    per_call = round(len(events) / (iters + 1))
+    events = events[len(events) - per_call * iters:]
+    if per_call == 0 or len(events) < per_call * iters:
+        return []
+    out = []
+    for k in range(per_call):
+        names = {name for _, name, _ in events[k::per_call]}
+        if len(names) != 1:
+            return []
+        out.append((names.pop(), statistics.median(
+            us for _, _, us in events[k::per_call])))
+    return out
+
+
 def gather_yardstick(args):
     """``torch.index_select`` of the rows a grouping case copies, with the
     indices (the plain query's) given ahead: what a plain gather of these
@@ -970,7 +1015,8 @@ def _stage_split(name: str, kern, args, tag: str) -> dict:
     ``index_select`` yardstick; the scatters by launch (the inversion, then
     the gather) beside ``index_add_`` of the same rows; kernels 3, 8 and 10
     a call by FP or SA stage, kernel 10 beside the ``cdist`` + ``topk``
-    yardstick. Returns the device us read."""
+    yardstick; kernel 11 launch by launch (``launch_us``). Returns the
+    device us read."""
     from istnet_tpu_torch.ops import dispatch
     if name in ("group_scatter", "interp_scatter"):
         sums = device_us(lambda: kern(*args))
@@ -988,6 +1034,14 @@ def _stage_split(name: str, kern, args, tag: str) -> dict:
         print(f"[timings] {tag}{name} {_label(name, args)} device us a call "
               f"by stage: {parts or 'not measured (no device event)'}")
         return {}
+    if name == "depth_fill":
+        launches = launch_us(lambda: kern(*args))
+        us = sum(t for _, t in launches) or float("nan")
+        parts = ", ".join(f"{k} {t:.1f}" for k, t in launches)
+        print(f"[timings] {tag}depth_fill {_label(name, args)}: device "
+              f"{us:.1f} us a call by launch: "
+              f"{parts or 'not measured (events lost)'}")
+        return {"device": us}
     if name == "fps":
         us = _device_total(lambda: kern(*args))
         print(f"[timings] {tag}fps {_label(name, args)}: device {us:.1f} us a "

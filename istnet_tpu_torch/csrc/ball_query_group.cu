@@ -22,8 +22,9 @@
 // - The block stages its cloud in shared memory once as (x, y, z, |p|^2),
 //   so a 32-point chunk of the query costs one 16-byte shared load a lane.
 // - Query: ball_query.cuh's warp_ball_query over the staged cloud, the
-//   scan that kernels 5 and 8 run from global memory, so the three kernels
-//   keep equal lists (the backward recomputes them with kernel 8).
+//   scan that kernel 8 runs over the same staging and kernel 5 from global
+//   memory, so the three kernels keep equal lists (the backward recomputes
+//   them with kernel 8).
 // - Copy: a radius's (ns, 3 + C) block is one contiguous run. The rows of 3
 //   + C elements are not vector-aligned, but the block is (ns * (3 + C) *
 //   sizeof(out) % 16 == 0 on the path): the warp assembles `rows` slots at a
@@ -169,14 +170,12 @@ bq_group_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz
   const int b = blockIdx.y;
   const int j = blockIdx.x * kWarps + warp;
   float4* s_cloud = reinterpret_cast<float4*>(s_dyn);
-  TOut* sb = reinterpret_cast<TOut*>(s_dyn + static_cast<size_t>(n) * sizeof(float4)) +
+  TOut* sb = reinterpret_cast<TOut*>(s_dyn + static_cast<size_t>(istnet::staged_points(n)) *
+                                                  sizeof(float4)) +
              static_cast<size_t>(warp) * radii.stage_elems;
 
   const float* pts = xyz + static_cast<size_t>(b) * n * 3;
-  for (int i = threadIdx.x; i < n; i += kWarps * 32) {
-    const float px = pts[3 * i], py = pts[3 * i + 1], pz = pts[3 * i + 2];
-    s_cloud[i] = make_float4(px, py, pz, istnet::norm2_rn(px, py, pz));
-  }
+  istnet::stage_cloud<kWarps * 32>(pts, n, s_cloud);
   __syncthreads();
   if (j >= m) return;  // whole warp leaves together
 
@@ -283,7 +282,7 @@ cudaError_t launch(const float* xyz, const float* new_xyz, const void* feats,
   const int per16 = 16 / static_cast<int>(sizeof(TOut));
   radii.stage_elems = (stage_rows * (3 + cf) + per16 - 1) / per16 * per16;
   const size_t smem = static_cast<size_t>(kWarps) * radii.stage_elems * sizeof(TOut) +
-                      static_cast<size_t>(n) * sizeof(float4);
+                      static_cast<size_t>(istnet::staged_points(n)) * sizeof(float4);
   const dim3 grid((m + kWarps - 1) / kWarps, b);
   const TFeat* f = static_cast<const TFeat*>(feats);
   if (smem <= kDynamicSmem) {

@@ -10,6 +10,7 @@ kernel, ``csrc/ball_query.cuh``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,6 +24,15 @@ MAX_RADII = 2        # csrc/ball_query.cuh: kMaxRadii
 MAX_NSAMPLE = 64     # csrc/ball_query.cuh: kMaxNs
 
 __all__ = ["ball_query_multi_cuda", "plain"]
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(radii: tuple, nsamples: tuple):
+    """The C entry's r^2 (f32) and ns (int) arrays of these radii, built
+    once a configuration (the C entry copies them)."""
+    nr = len(radii)
+    return ((ctypes.c_float * nr)(*(radius_sq(r) for r in radii)),
+            (ctypes.c_int * nr)(*nsamples))
 
 
 def ball_query_multi_cuda(radii, nsamples, xyz: torch.Tensor,
@@ -40,17 +50,17 @@ def ball_query_multi_cuda(radii, nsamples, xyz: torch.Tensor,
     if xyz.shape[-1] != 3 or new_xyz.shape != (b, m, 3) or n < 1:
         raise ValueError(f"ball_query: xyz {tuple(xyz.shape)}, new_xyz "
                          f"{tuple(new_xyz.shape)}")
-    outs = [torch.empty(b, m, ns, dtype=torch.int32, device=xyz.device)
-            for ns in nsamples]
-    nr = len(radii)
-    r2 = (ctypes.c_float * nr)(*(radius_sq(r) for r in radii))
-    ns_arr = (ctypes.c_int * nr)(*nsamples)
-    out_arr = (ctypes.c_void_p * nr)(*(o.data_ptr() for o in outs))
+    # one allocation, a 16-byte aligned view a radius
+    sizes = [-(-b * m * ns // 4) * 4 for ns in nsamples]
+    flat = torch.empty(sum(sizes), dtype=torch.int32, device=xyz.device)
+    outs = [part[:b * m * ns].view(b, m, ns)
+            for part, ns in zip(flat.split(sizes), nsamples)]
+    r2, ns_arr = _constants(radii, nsamples)
+    out_arr = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
     P, I = _build.P, _build.I
     fn = _build.function("istnet_ball_query", [P, P, I, I, I, I, P, P, P, P])
-    err = fn(xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, nr,
-             ctypes.cast(r2, P), ctypes.cast(ns_arr, P),
-             ctypes.cast(out_arr, P), _build.stream(xyz))
+    err = fn(xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, len(radii), r2,
+             ns_arr, out_arr, _build.stream(xyz))
     _build.check(err, "istnet_ball_query")
     ball_query_multi_cuda.launches += 1
     return outs

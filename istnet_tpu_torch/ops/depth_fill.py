@@ -132,22 +132,23 @@ def plain(depth: torch.Tensor, max_depth: float = 3.0,
 
 def fill_in_multiscale_cuda(depth: torch.Tensor, max_depth: float = 3.0,
                             bilateral: bool = True) -> torch.Tensor:
-    """(B, H, W) f32 metres on the card -> completed depth; five launches
-    (three tiled stages and the two column reductions between them), one
-    count."""
+    """(B, H, W) f32 metres on the card -> completed depth; two launches
+    (two tiled stages, the first reducing the top mask's rows by atomics)
+    and one memset, one count."""
     (depth,) = _build.cuda_inputs("depth_fill", depth)
     if depth.dim() != 3 or min(depth.shape[1:]) < 5:
         raise ValueError(f"depth_fill: (B, H, W) with H, W >= 5, got "
                          f"{tuple(depth.shape)}")
     b, h, w = depth.shape
-    tmp = torch.empty(2, b, h, w, dtype=torch.float32, device=depth.device)
+    # the first stage's output; the C entry's second scratch is unused
+    tmp = torch.empty_like(depth)
     first = torch.empty(b, w, dtype=torch.int32, device=depth.device)
     out = torch.empty_like(depth)
     P, I = _build.P, _build.I
     fn = _build.function("istnet_depth_fill",
                          [P, I, I, I, _build.ctypes.c_float, I, P, P, P, P, P])
     err = fn(depth.data_ptr(), b, h, w, float(max_depth), int(bilateral),
-             tmp[0].data_ptr(), tmp[1].data_ptr(), first.data_ptr(),
+             tmp.data_ptr(), tmp.data_ptr(), first.data_ptr(),
              out.data_ptr(), _build.stream(depth))
     _build.check(err, "istnet_depth_fill")
     fill_in_multiscale_cuda.launches += 1

@@ -459,6 +459,63 @@ def test_ball_query_kernel(cuda, n, m, radii, nsamples):
         assert g.dtype == torch.int32 and torch.equal(g, w)
 
 
+def _same_lists_as_the_grouping(radii, nsamples, xyz, cent, idx_list):
+    """Kernel 2's grouped xyz on these inputs are the rows of idx_list: the
+    forward's lists and the backward's recomputed ones are the same."""
+    grouped = dispatch.wrapper("ball_query_group")(radii, nsamples, xyz, cent,
+                                                   None)
+    return all(torch.equal(g, plain.group_points(xyz, i) - cent[:, :, None])
+               for g, i in zip(grouped, idx_list))
+
+
+def _cloud(seed, b, n, m, scale=0.1):
+    rng = np.random.RandomState(seed)
+    xyz = rng.randn(b, n, 3) * scale
+    return xyz, xyz[:, :m].copy()
+
+
+def _bq_no_hit(cuda):
+    xyz, cent = _cloud(20, 2, 300, 45)
+    cent[:, :, 0] += 50.0                       # every centroid far away
+    return (0.05,), (64,), xyz, cent
+
+
+_BQ_CASES = {
+    # SA 1's shapes (M=512, the camera radii) at N=2048: a staged cloud of
+    # 32 KB
+    "n2048_sa1": lambda cuda: ((0.01, 0.02), (16, 32),
+                               *_cloud(21, 2, 2048, 512)),
+    # past the staged limit (N > 2816): the scan from device memory
+    "n3000_element_wise": lambda cuda: ((0.02, 0.05), (16, 32),
+                                        *_cloud(22, 2, 3000, 100)),
+    "radius_with_no_hit": _bq_no_hit,
+    # a cloud of 1 cm: every list full within the first 32-point chunk
+    "lists_full_in_the_first_chunk": lambda cuda: (
+        (0.5, 1.0), (16, 32), *_cloud(23, 2, 300, 45, 0.01)),
+    # B * M / 8 = 1280 blocks, more than the card holds at once
+    "many_blocks": lambda cuda: ((0.02, 0.04), (16, 32),
+                                 *_cloud(24, 40, 512, 256)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BQ_CASES))
+def test_ball_query_kernel_staging_and_scan_edges(cuda, case):
+    """Kernel 8 equal to the plain version and to kernel 2's lists: a
+    staged cloud at SA 1's width, one too large to stage, a radius no point
+    is in (every slot point 0), lists full in the first chunk, a grid of
+    several waves."""
+    radii, nsamples, xyz, cent = _BQ_CASES[case](cuda)
+    xyz, cent = _f32(xyz, cuda), _f32(cent, cuda)
+    got = dispatch.wrapper("ball_query")(radii, nsamples, xyz, cent)
+    want = plain.ball_query_multi(radii, nsamples, xyz, cent)
+    assert ops.launch_counts()["ball_query"] == 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    assert _same_lists_as_the_grouping(radii, nsamples, xyz, cent, got)
+    if case == "radius_with_no_hit":
+        assert (got[0] == 0).all()
+
+
 @pytest.mark.parametrize("n,m,cf", [(256, 128, 128), (300, 45, 6)])
 def test_group_scatter_kernel(cuda, n, m, cf):
     rng = np.random.RandomState(9)
@@ -904,6 +961,58 @@ def test_depth_fill_kernel(cuda, shape):
     assert torch.equal(got > 0.01, want > 0.01)
     assert (got - want).abs().max().item() <= 1e-5
     assert ops.launch_counts() == _counts(depth_fill=2)
+
+
+def _seam_frames(shape):
+    return _holey_depth(shape[1] + shape[2], *shape)
+
+
+def _batch_of_top_rows(shape):
+    """24 images whose first valid rows differ in the same columns, so each
+    image's top masks are its own."""
+    d = _holey_depth(7, *shape)
+    for i in range(shape[0]):
+        d[i, : 3 * i] = 0.0
+        d[i, :, 40 + 5 * i: 44 + 5 * i] = 0.0
+        d[i, 10 * i + 1:, 290 + i] = 0.0
+    return d
+
+
+def _edge_columns(shape):
+    """A column whose only valid pixel is in the last row, an all-empty
+    column and an empty band of columns."""
+    d = _holey_depth(8, *shape)
+    d[:, :, 17] = 0.0
+    d[:, -1, 17] = 0.8
+    d[:, :, 70] = 0.0
+    d[1, :, 100:130] = 0.0
+    return d
+
+
+_FILL_CASES = {
+    # tile seams of the 40 x 64 and 40 x 60 tiles, H and W no multiples
+    "seams_81x125": (_seam_frames, (2, 81, 125)),
+    "seams_97x181": (_seam_frames, (1, 97, 181)),
+    "seams_41x61": (_seam_frames, (2, 41, 61)),
+    "seams_40x64": (_seam_frames, (1, 40, 64)),
+    "seams_5x5": (_seam_frames, (3, 5, 5)),
+    "batch_of_24_top_rows": (_batch_of_top_rows, (24, 96, 320)),
+    "edge_columns": (_edge_columns, (2, 70, 150)),
+    "all_zero": (lambda shape: np.zeros(shape, np.float32), (2, 70, 130)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FILL_CASES))
+def test_depth_fill_kernel_tiles_and_top_masks(cuda, case):
+    """Kernel 11 bit-equal to its plain version without the bilateral at
+    its tile seams and on the inputs that set the top masks."""
+    from istnet_tpu_torch.ops import depth_fill
+
+    make, shape = _FILL_CASES[case]
+    depth = _f32(make(shape), cuda)
+    got = dispatch.wrapper("depth_fill")(depth, 3.0, bilateral=False)
+    assert torch.equal(got, depth_fill.plain(depth, 3.0, bilateral=False))
+    assert ops.launch_counts() == _counts(depth_fill=1)
 
 
 def test_depth_fill_kernel_all_zero_and_refusals(cuda):
