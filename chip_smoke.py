@@ -87,7 +87,29 @@ float32 policy and, for 11-13, the bf16 one too:
 14. loops: ``test_func_device`` and ``test_func_device_batched`` (batch 32,
    kb 16) over a synthetic tree of 24 frames in a temporary directory write
    one pkl per frame with the same kept instances, ``nocs_map.evaluate``
-   gives finite APs; frames/s of each loop and the card's busy share.
+   gives finite APs; frames/s of each loop and the card's busy share;
+
+then the training loop through ``cli/train.py`` at full width (the shipped
+configs' B = 18 + 6, N = 1024, 192 x 192, SA npoints 512/256/128/64, their
+epochs cut) over synthetic Real + CAMERA trees of 8 scenes in a temporary
+directory:
+
+15. train loop: ``config/ist_net_default.yaml`` for 5 epochs of 4 steps
+   (checkpoint at epoch 5, 4 loader threads a loader): every loss finite,
+   every kernel launched ``TRAIN_PER_STEP`` times a step; median
+   ``T_iter`` / ``T_data`` / ``T_dispatch`` and samples/s over epochs 2-5
+   beside phase 10's bare step, peak memory, the host's CPU count;
+16. resume: ``--checkpoint_epoch 5`` with ``max_epoch`` 6: the restored
+   model and optimizer bit-equal to the state that wrote the checkpoint,
+   the first step count 20 at ``TrainConfig.lr(20)``, epoch 6 to its end
+   with finite losses, the card's busy share over it (torch.profiler);
+17. two-phase: PoseNetGT (``config/posenet_gt_default.yaml``, 5 epochs of
+   2 steps, ``POSENET_PER_STEP`` launches a step), its world extractor
+   moved into ``config/ist_net_freeze_world_enhancer.yaml``'s IST-Net (5
+   epochs of 2 steps, ``FROZEN_PER_STEP``), the frozen extractor's
+   parameters bit-equal to phase 1's after phase 2, ``cli/test.py`` from
+   the epoch-5 checkpoint on the card: finite APs; each loop's numbers as
+   in 15 and its busy share.
 
 Before the last line come the card's name and power limit (first line) and a
 JSON object of per-kernel results with each kernel's bound; the last line is
@@ -101,6 +123,7 @@ import dataclasses
 import gc
 import importlib.metadata
 import json
+import os
 import re
 import subprocess
 import sys
@@ -155,6 +178,15 @@ TRAIN_PER_STEP = {"fps": 8, "ball_query_group": 8, "fp_interpolate": 8,
                   "depth_fill": 0}
 FROZEN_PER_STEP = {**TRAIN_PER_STEP, "ball_query": 3, "group_scatter": 3,
                    "three_nn": 4, "interp_scatter": 4}
+# PoseNetGT: forward FPS / grouping / FP in its camera and world
+# extractors; backward in the world extractor alone (the pose head takes
+# the RGB and camera features detached)
+POSENET_PER_STEP = dict(FROZEN_PER_STEP)
+# the training loop through cli/train.py (phases 15-17): the shipped
+# configs' shapes, epochs cut; synthetic trees of LOOP_SCENES scenes
+LOOP_SCENES, LOOP_TEST_FRAMES = 8, 4
+LOOP_EPOCHS, LOOP_ITERS, TWO_PHASE_ITERS = 5, 4, 2
+REPO = os.path.dirname(os.path.abspath(__file__))
 # card vs CPU train step (B=2, N=128, 48x48, SA npoints 32/16/8/8, points
 # at std 3 cm so that the camera radii find neighbours at 128 points),
 # bounds ~10x over the measurements on the H100:
@@ -1512,10 +1544,11 @@ def phase_train_full_width(device) -> None:
             f"tensor {worst[0]} ({FULL_GRAD_TENSOR_TOL})")
 
 
-def phase_train_timings(device) -> None:
+def phase_train_timings(device) -> float:
     """Median ms of ``train_step`` at the training width, then the split of
     the same step into its parts (``start_step``, then timed by CUDA
-    events: ``step_loss``, the backward, ``finish_step``)."""
+    events: ``step_loss``, the backward, ``finish_step``); returns the bare
+    step's samples/s."""
     import statistics
 
     import torch
@@ -1539,13 +1572,15 @@ def phase_train_timings(device) -> None:
         train_step(model, opt, batch, step, gen, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    step_ms = []
+    step_ms, host_ms = [], []
     for step in range(2, 2 + TIMED_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         with no_gc():
+            t0 = time.perf_counter()
             ev[0].record()
             train_step(model, opt, batch, step, gen, cfg)
             ev[1].record()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
         step_ms.append(ev[0].elapsed_time(ev[1]))
     split = []
@@ -1569,7 +1604,10 @@ def phase_train_timings(device) -> None:
           f"over {TIMED_STEPS} (min {min(step_ms):.3f}, max "
           f"{max(step_ms):.3f}; {TRAIN_BATCH / med * 1e3:.1f} samples/s); "
           f"split medians: forward + loss {fwd:.3f} ms, backward {bwd:.3f} "
-          f"ms, Adam + BN EMA {upd:.3f} ms; peak memory {peak:.2f} GiB")
+          f"ms, Adam + BN EMA {upd:.3f} ms; peak memory {peak:.2f} GiB; "
+          f"host time to enqueue a step (train_step's return, no sync) "
+          f"median {statistics.median(host_ms):.3f} ms")
+    return TRAIN_BATCH / med * 1e3
 
 
 def _holey_depth(rng, b, h, w):
@@ -1863,6 +1901,245 @@ def phase_loops(model, device) -> None:
               f"{kept} kept instances; nocs_map.evaluate gives finite APs")
 
 
+def _config_copy(root: str, name: str, **overrides) -> str:
+    """``config/<name>`` written into ``root`` with ``overrides`` set (a
+    dotted key reaches into a section); the repo's file stays as it is."""
+    import yaml
+    with open(os.path.join(REPO, "config", name)) as f:
+        data = yaml.safe_load(f)
+    for key, value in overrides.items():
+        *path, last = key.split(".")
+        section = data
+        for part in path:
+            section = section[part]
+        section[last] = value
+    out = os.path.join(root, name)
+    with open(out, "w") as f:
+        yaml.safe_dump(data, f)
+    return out
+
+
+def _device_events(prof):
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def run_loop(label: str, argv: list[str], device, per_step: dict,
+             bare: float | None = None, profiled: bool = False):
+    """``cli/train.py`` main on ``argv``: every loss finite and every
+    kernel launched ``per_step`` times a step (counts set to 0 just
+    before); prints the medians of ``T_iter`` / ``T_data`` / ``T_dispatch``
+    and samples/s over the epochs after the first (all epochs if there is
+    one), the card's busy share when ``profiled``, and peak memory.
+    Returns the Solver."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.cli import train as cli_train
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        prof = (stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
+                if profiled else None)
+        solver = cli_train.main(argv + ["--device", str(device)])
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    records = solver.records
+    steps = len(records)
+    want = {k: v * steps for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"[{label}] launches {counts} over {steps} "
+                             f"steps, expected {want}")
+    bad = [(r["step"], k) for r in records for k, v in r.items()
+           if k not in ("epoch", "step") and not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"[{label}] non-finite records {bad[:5]}")
+    first = records[0]["epoch"]
+    window = [r for r in records if r["epoch"] > first] or records
+    batch = solver.syn_loader.batch_size + solver.real_loader.batch_size
+    med = {k: statistics.median(r[k] for r in window) * 1e3
+           for k in ("T_iter", "T_data", "T_dispatch")}
+    rate = batch * len(window) / sum(r["T_iter"] for r in window)
+    # an epoch's first batch waits for its loaders to start again
+    firsts = [r["T_data"] * 1e3 for i, r in enumerate(window)
+              if i == 0 or r["epoch"] != window[i - 1]["epoch"]]
+    busy = ""
+    if profiled:
+        events = _device_events(prof)
+        busy = (f"; card busy {_busy_share(events):.1%} of the device span "
+                f"({len(events)} device events, under the profiler)"
+                if events else "; card busy not measured (no device event)")
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    print(f"[{label}] {steps} steps of B={batch}, losses finite, launches "
+          f"per step as expected {({k: v for k, v in per_step.items() if v})}"
+          f"; over epochs {window[0]['epoch']}"
+          f"-{window[-1]['epoch']} ({len(window)} steps): median T_iter "
+          f"{med['T_iter']:.1f} ms (T_data {med['T_data']:.1f}, "
+          f"T_dispatch {med['T_dispatch']:.1f}; T_data of an epoch's first "
+          f"batch {statistics.median(firsts):.1f}), {rate:.1f} samples/s"
+          + (f" (bare step, phase 10: {bare:.1f})" if bare else "")
+          + busy + f"; peak memory {peak:.2f} GiB; os.cpu_count() "
+          f"{os.cpu_count()}")
+    return solver
+
+
+def phase_train_loop(root: str, device, bare: float):
+    """The training loop at full width: ``cli/train.py`` on a copy of
+    ``config/ist_net_default.yaml`` cut to LOOP_EPOCHS x LOOP_ITERS over
+    the synthetic trees under ``root``; returns the launches of the run and
+    the Solver."""
+    from istnet_tpu_torch import ops
+    cfg = _config_copy(root, "ist_net_default.yaml",
+                       max_epoch=LOOP_EPOCHS,
+                       num_mini_batch_per_epoch=LOOP_ITERS)
+    argv = ["--config", cfg, "--data_dir", os.path.join(root, "data"),
+            "--log_dir", os.path.join(root, "log_default")]
+    solver = run_loop("train loop", argv, device, TRAIN_PER_STEP, bare)
+    return ops.launch_counts(), solver
+
+
+def phase_resume(root: str, device, trained) -> None:
+    """``--checkpoint_epoch LOOP_EPOCHS`` with one more epoch: the model
+    and optimizer restored from the checkpoint bit-equal to ``trained``'s
+    (the loop's Solver, which wrote it), the first step count, the LR,
+    epoch LOOP_EPOCHS + 1 to its end with finite losses; the card's busy
+    share over that epoch."""
+    from istnet_tpu_torch.cli import train as cli_train
+    from istnet_tpu_torch.train import checkpoints
+    from istnet_tpu_torch.train.train_state import TrainConfig, make_optimizer
+    from istnet_tpu_torch.utils import Config
+    log_dir = os.path.join(root, "log_default")
+    cfg_path = _config_copy(root, "ist_net_default.yaml",
+                            max_epoch=LOOP_EPOCHS + 1,
+                            num_mini_batch_per_epoch=LOOP_ITERS)
+    cfg = Config.fromfile(cfg_path)
+    train_cfg = TrainConfig.from_config(cfg)
+    model = cli_train.build_model(cfg, train_cfg).to(device).train()
+    opt = make_optimizer(model, train_cfg)
+    ckpt = os.path.join(log_dir, "ckpt")
+    checkpoints.restore_checkpoint(ckpt, LOOP_EPOCHS, model, opt)
+    _same_state("resume: model", model.state_dict(),
+                trained.model.state_dict())
+    _same_state("resume: optimizer", opt.state_dict(),
+                trained.optimizer.state_dict())
+    del model, opt
+    solver = run_loop("resume", ["--config", cfg_path, "--data_dir",
+                                 os.path.join(root, "data"), "--log_dir",
+                                 log_dir, "--checkpoint_epoch",
+                                 str(LOOP_EPOCHS)],
+                      device, TRAIN_PER_STEP, profiled=True)
+    first = solver.records[0]
+    if (first["step"], first["epoch"]) != (LOOP_EPOCHS * LOOP_ITERS,
+                                            LOOP_EPOCHS + 1):
+        raise AssertionError(f"resume: first record {first}")
+    if first["lr"] != train_cfg.lr(first["step"]):
+        raise AssertionError(f"resume: lr {first['lr']}")
+    if len(solver.records) != LOOP_ITERS:
+        raise AssertionError(f"resume: {len(solver.records)} steps")
+    print(f"[resume] restored model and optimizer bit-equal to the epoch-"
+          f"{LOOP_EPOCHS} checkpoint; epoch {LOOP_EPOCHS + 1} from step "
+          f"{first['step']} at lr {first['lr']:.6g} ran {LOOP_ITERS} steps")
+
+
+def _same_state(label: str, got, want) -> None:
+    """Nested state dicts equal, tensors bit for bit."""
+    import torch
+    if isinstance(got, torch.Tensor):
+        if not (got.dtype == want.dtype and torch.equal(got, want)):
+            raise AssertionError(f"{label} differs")
+    elif isinstance(got, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: keys differ")
+        for k in got:
+            _same_state(f"{label}.{k}", got[k], want[k])
+    elif isinstance(got, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{label}: lengths differ")
+        for i, (a, b) in enumerate(zip(got, want)):
+            _same_state(f"{label}[{i}]", a, b)
+    elif got != want:
+        raise AssertionError(f"{label}: {got} != {want}")
+
+
+def phase_two_phase(root: str, device) -> dict:
+    """The two-phase recipe at full width through the CLIs: PoseNetGT on a
+    copy of ``config/posenet_gt_default.yaml``, its epoch-5 world extractor
+    into a copy of ``config/ist_net_freeze_world_enhancer.yaml``, both cut
+    to 5 epochs of TWO_PHASE_ITERS, then ``cli/test.py`` from phase 2's
+    epoch-5 checkpoint on the card. Checks the launches of both loops, the
+    frozen extractor bit-equal to phase 1's after phase 2, finite APs;
+    returns phase 1's launches."""
+    import numpy as np
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.cli import test as cli_test
+    from istnet_tpu_torch.train import checkpoints
+    data = ["--data_dir", os.path.join(root, "data")]
+    p1_log, p2_log = (os.path.join(root, d) for d in ("log_p1", "log_p2"))
+    p1 = _config_copy(root, "posenet_gt_default.yaml", max_epoch=5,
+                      num_mini_batch_per_epoch=TWO_PHASE_ITERS)
+    run_loop("posenet_gt", ["--config", p1, "--log_dir", p1_log] + data,
+             device, POSENET_PER_STEP, profiled=True)
+    p1_counts = ops.launch_counts()
+    p2 = _config_copy(root, "ist_net_freeze_world_enhancer.yaml", max_epoch=5,
+                      num_mini_batch_per_epoch=TWO_PHASE_ITERS,
+                      world_enhancer_weights=os.path.join(p1_log, "ckpt"),
+                      world_enhancer_epoch=5)
+    run_loop("frozen", ["--config", p2, "--log_dir", p2_log] + data, device,
+             FROZEN_PER_STEP, profiled=True)
+    src = checkpoints.restore_for_eval(os.path.join(p1_log, "ckpt"), 5)["model"]
+    dst = checkpoints.restore_for_eval(os.path.join(p2_log, "ckpt"), 5)["model"]
+    params = [k for k in dst if k.startswith("world_enhancer.extractor.")
+              and "running_" not in k and "num_batches" not in k]
+    moved = [k for k in params if not np.array_equal(
+        dst[k].numpy(), src["pts_gt_extractor." + k[len("world_enhancer."
+                                                       "extractor."):]].numpy())]
+    if not params or moved:
+        raise AssertionError(f"the frozen extractor moved: {moved[:5]}")
+    stats_moved = sum(
+        not np.array_equal(dst[k].numpy(), src["pts_gt_extractor." + k[len(
+            "world_enhancer.extractor."):]].numpy())
+        for k in dst if k.startswith("world_enhancer.extractor.")
+        and "running_" in k)
+    iou, pose = cli_test.main(["--config", p2, "--data_dir", root,
+                               "--log_dir", p2_log, "--test_epoch", "5",
+                               "--device", str(device)])
+    if not (np.isfinite(iou).all() and np.isfinite(pose).all()):
+        raise AssertionError("two-phase: non-finite APs")
+    print(f"[two-phase] world_enhancer.extractor's {len(params)} parameters "
+          f"bit-equal to phase 1's pts_gt_extractor after phase 2 "
+          f"({stats_moved} BN statistics moved, as in the reference); "
+          f"cli/test.py from the epoch-5 checkpoint on the card: finite APs")
+    return p1_counts
+
+
+def phase_training(device, bare: float) -> tuple[dict, dict]:
+    """Phases 15-17 in one temporary directory: the synthetic train trees
+    (LOOP_SCENES scenes each) and a test tree, then the loop, the resume
+    and the two-phase recipe; returns the loop's and PoseNetGT's launches."""
+    import tempfile
+
+    from istnet_tpu_torch.data import synthetic
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        synthetic.build_train_trees(os.path.join(root, "data"), LOOP_SCENES)
+        synthetic.build_test_tree(root, LOOP_TEST_FRAMES)
+        print(f"[train loop] wrote Real + CAMERA train trees of "
+              f"{LOOP_SCENES} scenes and {LOOP_TEST_FRAMES} test frames in "
+              f"{time.perf_counter() - t0:.1f} s")
+        loop_counts, trained = phase_train_loop(root, device, bare)
+        phase_resume(root, device, trained)
+        del trained
+        p1_counts = phase_two_phase(root, device)
+    return loop_counts, p1_counts
+
+
 def main() -> int:
     device_info = phase_device()
     import torch
@@ -1948,8 +2225,14 @@ def main() -> int:
         counts_t = phase_train_steps(device)
         phase_train_reference(device)
         phase_train_full_width(device)
-        phase_train_timings(device)
+        bare = phase_train_timings(device)
     record("train", "float32", errs_t, counts_t, times_t, list(train_cases))
+
+    loop_counts, posenet_counts = phase_training(device, bare)
+    record("train loop", "float32", errs_t, loop_counts, times_t,
+           list(train_cases))
+    record("posenet_gt", "float32", errs_t, posenet_counts, times_t,
+           list(train_cases))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device_info}))

@@ -5,10 +5,12 @@
   --data_dir data/NOCS --torch_checkpoint ist_net_default.pth
   [--device_preprocess] [--eval_batch 64] [--only_eval] [--device cpu]``
 
-Weights come from ``--torch_checkpoint``: a reference ``.pth`` state dict
-loads directly (strict), a ``.npz`` of JAX trees goes through
-``istnet_tpu_torch.convert``. The model runs on the card unless ``--device
-cpu`` is given, under the ``compute_dtype`` of the config.
+Weights come from the port's own checkpoint of ``--test_epoch`` under
+``log_dir/ckpt`` (``cli/train.py`` writes it), or from
+``--torch_checkpoint``: a reference ``.pth`` state dict loads directly
+(strict), a ``.npz`` of JAX trees goes through ``istnet_tpu_torch.convert``.
+The model runs on the card unless ``--device cpu`` is given, under the
+``compute_dtype`` of the config.
 """
 
 from __future__ import annotations
@@ -19,12 +21,9 @@ import time
 
 _NOT_YET = {
     "devices": "--devices (multi-GPU inference) is not ported yet: "
-               "ROADMAP.md queue 1, 'multi-GPU'",
+               "ROADMAP.md queue 1, item 8",
     "vis": "--vis (eval/vis.py) is not ported yet: ROADMAP.md queue 1, "
-           "'eval/vis.py'",
-    "checkpoint": "restoring the port's own training checkpoints comes with "
-                  "train/checkpoints.py (ROADMAP.md queue 1, 'solver, "
-                  "checkpoints and cli/train.py'); pass --torch_checkpoint",
+           "item 9",
 }
 
 
@@ -40,7 +39,8 @@ def parse_args(argv=None):
                         "parses but never reads this flag")
     p.add_argument("--torch_checkpoint", default=None,
                    help="a reference-trained torch .pth state dict, or a "
-                        ".npz of JAX trees (converted on the fly)")
+                        ".npz of JAX trees (converted on the fly), instead "
+                        "of the port's checkpoint under log_dir/ckpt")
     p.add_argument("--device_preprocess", action="store_true",
                    help="run depth completion/crop/sampling/resize on the "
                         "device, in front of the model forward")
@@ -65,8 +65,6 @@ def main(argv=None):
         raise SystemExit(_NOT_YET["devices"])
     if args.vis or args.vis_axes or args.vis_labels:
         raise SystemExit(_NOT_YET["vis"])
-    if not args.only_eval and not args.torch_checkpoint:
-        raise SystemExit(_NOT_YET["checkpoint"])
 
     import torch
 
@@ -76,11 +74,18 @@ def main(argv=None):
     from istnet_tpu_torch.eval.nocs_map import evaluate
     from istnet_tpu_torch.models.ist_net import ISTNet
     from istnet_tpu_torch.nn import precision
+    from istnet_tpu_torch.train import checkpoints
     from istnet_tpu_torch.utils import Config, get_logger
 
     cfg = Config.fromfile(args.config)
     exp_name = os.path.splitext(os.path.basename(args.config))[0]
     log_dir = args.log_dir or os.path.join("log", exp_name)
+    ckpt_dir = os.path.join(log_dir, "ckpt")
+    if not (args.only_eval or args.torch_checkpoint or os.path.exists(
+            checkpoints.checkpoint_path(ckpt_dir, args.test_epoch))):
+        raise SystemExit(f"no checkpoint of epoch {args.test_epoch} under "
+                         f"{ckpt_dir}: train with cli/train.py, or pass "
+                         "--torch_checkpoint")
     save_path = os.path.join(log_dir, f"eval_epoch{args.test_epoch}")
     os.makedirs(save_path, exist_ok=True)
     logger = get_logger(
@@ -99,7 +104,13 @@ def main(argv=None):
             nclass=cfg.num_category,
             freeze_world_enhancer=bool(cfg.get("freeze_world_enhancer", False)),
             sa_npoints=tuple(cfg.get("sa_npoints", (512, 256, 128, 64))))
-        state = convert.load_weights(args.torch_checkpoint)
+        if args.torch_checkpoint:
+            source = args.torch_checkpoint
+            state = convert.load_weights(source)
+        else:
+            source = f"{ckpt_dir} epoch {args.test_epoch}"
+            state = checkpoints.restore_for_eval(ckpt_dir,
+                                                 args.test_epoch)["model"]
         if model.freeze_world_enhancer:
             # a frozen checkpoint carries no world pose head; eval never
             # calls it, so the module's own initial values stay
@@ -109,7 +120,7 @@ def main(argv=None):
                      **state}
         model.load_state_dict(state, strict=True)
         model = model.eval().to(device)
-        logger.info(f"loaded {args.torch_checkpoint} on {device}")
+        logger.info(f"loaded {source} on {device}")
 
         img_size = int(cfg.test.img_size)
         sample_num = int(cfg.test.sample_num)

@@ -4,8 +4,8 @@ and the loading of checkpoint files.
 The port's submodules carry the reference torch key names, so a reference
 model-zoo ``.pth`` state dict loads into the port directly
 (``load_torch_state_dict``). ``state_dict_from_jax`` maps the
-``{"params", "batch_stats"}`` trees of the JAX ``ISTNet`` (resnet18 trunk)
-onto those keys: the port's own table of flax paths, written out below, with
+``{"params", "batch_stats"}`` trees of the JAX ``ISTNet`` or ``PoseNetGT``
+(resnet18 trunk) onto those keys: the port's own table of flax paths, written out below, with
 the layouts turned back (HWIO conv kernels to OIHW, ``(I, O)`` dense kernels
 to ``(O, I[, 1[, 1]])``). Three things have no one-to-one leaf:
 
@@ -184,11 +184,7 @@ _HEAVY = ("pts_mlp1", "pts_mlp2", "pose_mlp1", "pose_mlp2")
 _LIGHT = ("pts_mlp", "pose_mlp1", "pose_mlp2")
 
 
-def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
-    """``{"params": ..., "batch_stats": ...}`` trees of the JAX ``ISTNet``
-    (numpy or JAX arrays) -> the port's ``state_dict``, for
-    ``load_state_dict(strict=True)``."""
-    b = _Bridge(variables)
+def _ist_net(b: _Bridge, variables: Mapping) -> None:
     _encoder(b, "rgb_cam_extractor")
     _pointnet2(b, "pts_cam_extractor", "pts_cam_extractor")
     t, f = "implicit_transform.feature_refine", \
@@ -204,6 +200,28 @@ def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     if "pose_estimator" in variables["params"].get("world_enhancer", {}):
         _estimator(b, "world_enhancer.pose_estimator",
                    "world_enhancer/pose_estimator", _HEAVY)
+
+
+def _posenet_gt(b: _Bridge, variables: Mapping) -> None:
+    _encoder(b, "rgb_extractor")
+    _pointnet2(b, "pts_extractor", "pts_extractor")
+    _pointnet2(b, "pts_gt_extractor", "pts_gt_extractor")
+    _estimator(b, "pose_estimator_aux", "pose_estimator_aux", _HEAVY)
+
+
+_MODELS = {"ist_net": _ist_net, "posenet_gt": _posenet_gt}
+
+
+def state_dict_from_jax(variables: Mapping,
+                        model: str = "ist_net") -> dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` trees of the JAX ``ISTNet``
+    (``model="ist_net"``) or ``PoseNetGT`` (``"posenet_gt"``), numpy or JAX
+    arrays -> the port's ``state_dict``, for
+    ``load_state_dict(strict=True)``."""
+    if model not in _MODELS:
+        raise ConversionError(f"unknown model {model!r}")
+    b = _Bridge(variables)
+    _MODELS[model](b, variables)
     left = b.leftovers()
     if left:
         raise ConversionError(
@@ -235,9 +253,10 @@ def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
             for k, v in obj.items()}
 
 
-def load_weights(path: str) -> dict[str, torch.Tensor]:
-    """A state dict for ``ISTNet.load_state_dict(strict=True)`` from a
+def load_weights(path: str, model: str = "ist_net") -> dict[str, torch.Tensor]:
+    """A state dict for ``load_state_dict(strict=True)`` of ``ISTNet``
+    (``model="ist_net"``) or ``PoseNetGT`` (``"posenet_gt"``) from a
     reference ``.pth`` or from a ``.npz`` of JAX trees."""
     if path.endswith(".npz"):
-        return state_dict_from_jax(load_npz(path))
+        return state_dict_from_jax(load_npz(path), model)
     return load_torch_state_dict(path)

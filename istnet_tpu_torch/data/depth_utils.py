@@ -2,8 +2,10 @@
 
 The port's own copy of ``istnet_tpu/data/depth_utils.py``:
 
-- ``load_depth``: 16-bit or RGB-encoded depth PNGs; the RGB encoding packs
-  depth as G*256+B with 32001 as the invalid marker.
+- ``load_depth`` / ``load_composed_depth``: 16-bit or RGB-encoded depth
+  PNGs; the RGB encoding packs depth as G*256+B with 32001 as the invalid
+  marker. CAMERA frames read their composed depth from
+  ``camera_full_depths/.../<stem>_composed.png``.
 - ``get_bbox``: square crop snapped to 40-px multiples, max 440, clamped to
   the 480x640 frame.
 - ``fill_in_multiscale`` / ``fill_missing``: the ip_basic-style multi-scale
@@ -11,11 +13,13 @@ The port's own copy of ``istnet_tpu/data/depth_utils.py``:
   three distance bands with cross kernels, close, median-blur, hole-fill,
   6x masked dilation, median + bilateral blur, invert back. It is the golden
   reference of the device fill (``ops/depth_fill.py``) and the host path of
-  ``TestDataset``.
+  ``TrainingDataset`` and ``TestDataset``.
 - ``backproject``: depth map -> camera-space point map.
 """
 
 from __future__ import annotations
+
+import os
 
 import cv2
 import numpy as np
@@ -53,6 +57,16 @@ def _decode_depth_png(depth_path: str) -> np.ndarray | None:
 def load_depth(img_path: str) -> np.ndarray | None:
     """``<img_path>_depth.png`` -> (480, 640) uint16 mm."""
     return _decode_depth_png(img_path + "_depth.png")
+
+
+def load_composed_depth(img_path: str) -> np.ndarray | None:
+    """CAMERA composed depth of ``<data_dir>/CAMERA/...<stem>``, read from
+    ``<data_dir>/camera_full_depths/...<stem>_composed.png``; None if
+    absent."""
+    path = img_path.replace("/data/CAMERA/", "/data/camera_full_depths/") + "_composed.png"
+    if not os.path.exists(path):
+        return None
+    return _decode_depth_png(path)
 
 
 def get_bbox(bbox, img_height: int = 480, img_width: int = 640):

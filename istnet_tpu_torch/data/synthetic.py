@@ -1,16 +1,17 @@
-"""Synthetic NOCS-format test trees (exact on-disk file formats).
+"""Synthetic NOCS-format train and test trees (exact on-disk file formats).
 
-The port's own copy of the test side of ``istnet_tpu/data/synthetic.py``:
-color/depth/mask/coord PNGs, ``_label.pkl`` ground truth, the Mask-RCNN
-``results_*.pkl`` and ``obj_models/real_test.pkl``, from random pixels, so
-that the inference loops and the evaluation run end to end without the NOCS
-download.
+The port's own copy of ``istnet_tpu/data/synthetic.py``'s trees:
+color/depth/mask/coord PNGs, ``_label.pkl`` ground truth, CAMERA composed
+depths, the Mask-RCNN ``results_*.pkl`` and the ``obj_models/*.pkl``
+vertex files, from random pixels, so that training, the inference loops
+and the evaluation run end to end without the NOCS download.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import shutil
 
 import cv2
 import numpy as np
@@ -90,6 +91,30 @@ def _write_models(data_dir: str, names: tuple[str, ...]) -> None:
     for name in names:
         with open(os.path.join(data_dir, "obj_models", name), "wb") as f:
             pickle.dump(models, f)
+
+
+def build_train_trees(data_dir: str, n_scenes: int = 2) -> None:
+    """Real + CAMERA train trees (with composed depths) + model pkls, the
+    layout ``TrainingDataset`` reads (``data_dir`` must contain ``/data/``
+    for the composed-depth path)."""
+    stems = [f"{i:04d}" for i in range(n_scenes)]
+    real_dir = os.path.join(data_dir, "Real", "train", "scene_1")
+    for i, stem in enumerate(stems):
+        write_scene(real_dir, stem, seed=i)
+    with open(os.path.join(data_dir, "Real", "train_list.txt"), "w") as f:
+        f.writelines(f"train/scene_1/{s}\n" for s in stems)
+
+    cam_dir = os.path.join(data_dir, "CAMERA", "train", "00000")
+    comp_dir = os.path.join(data_dir, "camera_full_depths", "train", "00000")
+    os.makedirs(comp_dir, exist_ok=True)
+    for i, stem in enumerate(stems):
+        write_scene(cam_dir, stem, seed=10 + i)
+        shutil.copy(os.path.join(cam_dir, f"{stem}_depth.png"),
+                    os.path.join(comp_dir, f"{stem}_composed.png"))
+    with open(os.path.join(data_dir, "CAMERA", "train_list.txt"), "w") as f:
+        f.writelines(f"train/00000/{s}\n" for s in stems)
+
+    _write_models(data_dir, ("real_train.pkl", "camera_train.pkl"))
 
 
 def build_test_tree(data_dir: str, n_scenes: int = 2, n_inst: int = 2) -> None:

@@ -494,9 +494,11 @@ def compute_independent_map(final_results: Sequence[dict],
 
     _log_results(iou_aps, pose_aps, list(iou_list), list(degree_list),
                  list(shift_list), synset_names, logger)
-    if plot_figure and log_dir is not None:
-        _plot_curves(iou_aps, pose_aps, list(iou_list), list(degree_list),
-                     list(shift_list), synset_names, log_dir)
+    if plot_figure and log_dir is not None and not _plot_curves(
+            iou_aps, pose_aps, list(iou_list), list(degree_list),
+            list(shift_list), synset_names, log_dir):
+        (logger.warning if logger is not None else print)(
+            "matplotlib is not installed: no AP-curve figure")
     return iou_aps, pose_aps
 
 
@@ -539,9 +541,13 @@ def _log_results(iou_aps, pose_aps, iou_list, degree_list, shift_list,
 
 
 def _plot_curves(iou_aps, pose_aps, iou_list, degree_list, shift_list,
-                 synset_names, log_dir: str) -> None:
-    """AP-curve PNGs (evaluation_utils.py:879-951)."""
-    import matplotlib
+                 synset_names, log_dir: str) -> bool:
+    """AP-curve PNGs (evaluation_utils.py:879-951); False, and no figure,
+    on a host without matplotlib."""
+    try:
+        import matplotlib
+    except ImportError:
+        return False
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
@@ -567,6 +573,7 @@ def _plot_curves(iou_aps, pose_aps, iou_list, degree_list, shift_list,
     fig.savefig(os.path.join(
         vis, "mAP_{}-{}cm.png".format(shift_list[0], shift_list[-2])))
     plt.close(fig)
+    return True
 
 
 def evaluate(path: str, logger=None, plot_figure: bool = True):

@@ -17,6 +17,10 @@
 - The reference computes its synthetic and real losses separately and
   weights them by batch size; every term is a batch mean, so that equals
   the loss of the concatenated batch, which is what one step takes.
+- ``TrainConfig.from_config`` reads a YAML config as
+  ``istnet_tpu/cli/train.py`` and ``make_optimizer`` read it; its
+  ``model_arch`` picks the loss: ``ist_net`` (``supervised_loss``) or
+  ``posenet_gt`` (PoseNetGT's pose distance).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import dataclasses
 
 import torch
 
+from istnet_tpu_torch.models import posenet_gt
 from istnet_tpu_torch.models.ist_net import supervised_loss
 from istnet_tpu_torch.nn.layers import BatchNorm
 from istnet_tpu_torch.train.schedules import bn_momentum, cyclic_triangular_lr
@@ -34,6 +39,7 @@ from istnet_tpu_torch.train.schedules import bn_momentum, cyclic_triangular_lr
 class TrainConfig:
     """The recipe's knobs, with ``config/ist_net_default.yaml``'s values."""
 
+    model_arch: str = "ist_net"
     gamma1: float = 1.0
     gamma2: float = 10.0
     freeze_world_enhancer: bool = False
@@ -52,6 +58,31 @@ class TrainConfig:
         """``config/ist_net_freeze_world_enhancer.yaml``: gamma2 100, the
         world enhancer frozen."""
         return cls(**{"gamma2": 100.0, "freeze_world_enhancer": True, **kw})
+
+    @classmethod
+    def from_config(cls, cfg) -> "TrainConfig":
+        """The knobs of a YAML config (``utils.config.Config``): the loss
+        weights, the recipe, the epoch length, weight decay, the BN
+        schedule and only ``optimizer.adam_betas`` / ``adam_eps`` (the
+        configs' ``betas`` / ``eps`` never reach the reference's Adam)."""
+        arch = cfg.get("model_arch", "ist_net")
+        if arch not in ("ist_net", "posenet_gt"):
+            raise ValueError(f"unknown model_arch {arch}")
+        opt, bn = cfg.optimizer, cfg.bn
+        loss = cfg.get("loss") or {}
+        betas = opt.get("adam_betas", cls.adam_betas)
+        gammas = {k: float(loss[k]) for k in ("gamma1", "gamma2") if k in loss}
+        return cls(
+            model_arch=arch, **gammas,
+            freeze_world_enhancer=(arch == "ist_net" and bool(
+                cfg.get("freeze_world_enhancer", False))),
+            max_epoch=int(cfg.max_epoch),
+            iters_per_epoch=int(cfg.get("num_mini_batch_per_epoch", 4000)),
+            weight_decay=float(opt.get("weight_decay", 0.0)),
+            bn_momentum=float(bn.bn_momentum), bn_decay=float(bn.bn_decay),
+            decay_step=int(bn.decay_step), bnm_clip=float(bn.bnm_clip),
+            adam_betas=(float(betas[0]), float(betas[1])),
+            adam_eps=float(opt.get("adam_eps", cls.adam_eps)))
 
     @property
     def step_size_up(self) -> int:
@@ -117,8 +148,10 @@ def start_step(model: torch.nn.Module, optimizer: torch.optim.Adam,
 
 def step_loss(model: torch.nn.Module, batch: dict,
               generator: torch.Generator, cfg: TrainConfig):
-    """The forward and the supervised loss: ``(total, parts)``."""
+    """The forward and the loss of ``cfg.model_arch``: ``(total, parts)``."""
     end_points = model(batch["inputs"], generator)
+    if cfg.model_arch == "posenet_gt":
+        return posenet_gt.supervised_loss(end_points, batch["labels"])
     return supervised_loss(end_points, batch["labels"], cfg.gamma1,
                            cfg.gamma2, cfg.freeze_world_enhancer)
 

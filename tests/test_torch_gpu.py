@@ -25,7 +25,10 @@ value (they sum each row in a fixed order, the plain versions in theirs)
 with float32 and bf16 cotangents, and bit-equal from call to call; their
 inversion equal to its plain version; the dispatch ops' gradients on
 the card against autograd through the plain ops on the CPU; one tiny train
-step on the card against the same step on the CPU.
+step on the card against the same step on the CPU. The training loop: 2
+Solver steps at full width from a synthetic train tree with each step's
+launch counts (IST-Net and PoseNetGT), and a checkpoint written on the card
+restored on the CPU and back onto the card.
 """
 
 import numpy as np
@@ -1069,3 +1072,91 @@ def test_device_forward_runs_over_padded_and_near_empty_rows(cuda):
     assert ops.launch_counts() == _counts(
         depth_fill=1, fps=4, ball_query_group=4, fp_interpolate=4,
         fold_upsample=1)
+
+
+def _full_width_config(name, **overrides):
+    """``config/<name>`` with the epoch cut to ``overrides``."""
+    from pathlib import Path
+
+    from istnet_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(Path(__file__).resolve().parent.parent / "config" / name)
+    for key, value in overrides.items():
+        cfg[key] = value
+    return cfg
+
+
+@pytest.mark.parametrize("name,per_step", [
+    ("ist_net_default.yaml", dict(fps=8, ball_query_group=8, fp_interpolate=8,
+                                  ball_query=6, group_scatter=6, three_nn=8,
+                                  interp_scatter=8)),
+    ("posenet_gt_default.yaml", dict(fps=8, ball_query_group=8,
+                                     fp_interpolate=8, ball_query=3,
+                                     group_scatter=3, three_nn=4,
+                                     interp_scatter=4)),
+])
+def test_solver_steps_at_full_width_from_a_synthetic_tree(cuda, tmp_path, name,
+                                                          per_step):
+    """The shipped config's model, loaders and Solver (B = 18 + 6, N = 1024,
+    192 x 192, SA npoints 512/256/128/64), cut to one epoch of 2 steps:
+    finite losses, the step count, and every kernel launched as often as
+    the step's path asks (PoseNetGT: the world extractor's backward only)."""
+    from istnet_tpu_torch.cli.train import build_model
+    from istnet_tpu_torch.data import synthetic
+    from istnet_tpu_torch.data.dataset import TrainingDataset
+    from istnet_tpu_torch.data.loader import DataLoader
+    from istnet_tpu_torch.train.solver import Solver
+
+    data_dir = str(tmp_path / "data")
+    synthetic.build_train_trees(data_dir, n_scenes=4)
+    cfg = _full_width_config(name, max_epoch=1,
+                             num_mini_batch_per_epoch=2)
+    train_cfg = TrainConfig.from_config(cfg)
+    model = build_model(cfg, train_cfg).to(cuda).train()
+    dl = cfg.train_dataloader
+    loaders = [DataLoader(TrainingDataset(cfg.train_dataset, data_dir,
+                                          data_type=t, num_img_per_epoch=2 * bs,
+                                          seed=s), bs)
+               for t, bs, s in (("syn", int(dl.syn_bs), 1),
+                                ("real_withLabel", int(dl.real_bs), 2))]
+    solver = Solver(model, make_optimizer(model, train_cfg), train_cfg, cfg,
+                    syn_loader=loaders[0], real_loader=loaders[1])
+    ops.reset_launch_counts()
+    records = solver.solve()
+    assert [r["step"] for r in records] == [0, 1]
+    assert all(np.isfinite(v) for r in records for k, v in r.items()
+               if k not in ("epoch", "step"))
+    assert ops.launch_counts() == _counts(**{k: 2 * v
+                                             for k, v in per_step.items()})
+
+
+def test_checkpoint_written_on_the_card_restores_on_the_cpu(cuda, tmp_path):
+    from istnet_tpu_torch.train import checkpoints
+
+    cfg = TrainConfig()
+    model = build_train_model(cuda, seed=2, sa_npoints=(32, 16, 8, 8))
+    opt = make_optimizer(model, cfg)
+    train_step(model, opt, make_train_batch(2, 128, 48, seed=6, device=cuda),
+               0, torch.Generator(device=cuda).manual_seed(0), cfg)
+    checkpoints.save_checkpoint(str(tmp_path), 5, model, opt, 1)
+    on_cpu = checkpoints.restore_for_eval(str(tmp_path), 5, map_location="cpu")
+    for k, v in model.state_dict().items():
+        assert on_cpu["model"][k].device.type == "cpu"
+        assert torch.equal(on_cpu["model"][k], v.cpu()), k
+    cpu_model = build_train_model("cpu", seed=9, sa_npoints=(32, 16, 8, 8))
+    cpu_opt = make_optimizer(cpu_model, cfg)
+    checkpoints.restore_checkpoint(str(tmp_path), 5, cpu_model, cpu_opt)
+    for k, v in model.state_dict().items():
+        assert torch.equal(cpu_model.state_dict()[k], v.cpu()), k
+    card_model = build_train_model(cuda, seed=9, sa_npoints=(32, 16, 8, 8))
+    card_opt = make_optimizer(card_model, cfg)
+    payload = checkpoints.restore_checkpoint(str(tmp_path), 5, card_model,
+                                             card_opt)
+    assert payload["step"] == 1
+    state = card_opt.state_dict()["state"]
+    assert state and all(s["exp_avg"].is_cuda for s in state.values())
+    # Adam's step counts stay on the CPU, as a fresh run keeps them
+    assert all(not s["step"].is_cuda for s in state.values())
+    assert all(not s["step"].is_cuda for s in opt.state_dict()["state"].values())
+    for k, v in model.state_dict().items():
+        assert torch.equal(card_model.state_dict()[k], v), k

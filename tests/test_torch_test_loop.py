@@ -292,6 +292,24 @@ def test_nocs_map_equals_the_jax_package(models, tree, tmp_path):
         np.testing.assert_array_equal(g, w)
 
 
+def test_evaluate_without_matplotlib_keeps_the_aps(models, tree, tmp_path,
+                                                   monkeypatch, capsys):
+    """A host without matplotlib (the card's machine has none) gets the
+    AP arrays and a note instead of the AP-curve figure."""
+    import sys
+
+    test_loop.test_func(test_loop.make_forward(models[0]),
+                        TestDataset(_cfg(), tree), str(tmp_path),
+                        progress=False)
+    want = nocs_map.evaluate(str(tmp_path), plot_figure=False)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)   # import raises
+    got = nocs_map.evaluate(str(tmp_path), plot_figure=True)
+    assert "matplotlib is not installed" in capsys.readouterr().out
+    assert not (tmp_path / "visual").exists()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_cli_end_to_end_from_a_saved_state_dict(models, tree, tmp_path):
     from istnet_tpu_torch.cli import test as cli
 
@@ -325,7 +343,7 @@ def test_cli_end_to_end_from_a_saved_state_dict(models, tree, tmp_path):
                                       b[name]["pred_class_ids"])
     with pytest.raises(SystemExit, match="queue 1"):
         cli.main(base + ["--devices", "2"])
-    with pytest.raises(SystemExit, match="queue 1"):
+    with pytest.raises(SystemExit, match="no checkpoint of epoch 30"):
         cli.main(["--config", str(cfg), "--data_dir", tree, "--device", "cpu",
                   "--log_dir", str(tmp_path / "c")])
     assert not (tmp_path / "c").exists()
