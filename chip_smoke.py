@@ -60,8 +60,8 @@ then the float32 train step (``train/train_state.py``):
    npoints): the loss, the gradients and the updated state; then one step
    at full width (B=2, N=1024, 192x192, SA npoints 512/256/128/64) on the
    card against the port's float64 CPU step: the loss parts and the
-   gradients, and whether a second card step repeats the first bit for
-   bit;
+   gradients, and a second card step from the same state repeating the
+   first bit for bit;
 10. train timings: median step ms over 10 steps with its forward, backward
    and update split (CUDA events), peak memory.
 
@@ -109,7 +109,17 @@ directory:
    epochs of 2 steps, ``FROZEN_PER_STEP``), the frozen extractor's
    parameters bit-equal to phase 1's after phase 2, ``cli/test.py`` from
    the epoch-5 checkpoint on the card: finite APs; each loop's numbers as
-   in 15 and its busy share.
+   in 15 and its busy share;
+18. device loop: ``config/ist_net_device_pipeline.yaml`` (raw frames; the
+   fill on kernel 11, crop, sampling, jitter, ColorJitter, ``qo`` and the
+   FS-Net augmentation inside the step) for 5 epochs of 4 steps: every
+   loss finite, ``DEVICE_LOOP_PER_STEP`` launches a step (the train step's
+   and kernel 11 once), the numbers of 15 beside phase 15's, the busy share
+   over one more, profiled, epoch; on one raw batch of the trees (B = 24):
+   the card's preprocessing against the CPU's with the same draws
+   (``choose`` equal, points and ``qo`` within 1e-5 m, rgb within 2e-3 of
+   a level), then its device us, launches and host enqueue ms part by
+   part; kernel 11 at the path's shape against its plain version.
 
 Before the last line come the card's name and power limit (first line) and a
 JSON object of per-kernel results with each kernel's bound; the last line is
@@ -182,6 +192,13 @@ FROZEN_PER_STEP = {**TRAIN_PER_STEP, "ball_query": 3, "group_scatter": 3,
 # extractors; backward in the world extractor alone (the pose head takes
 # the RGB and camera features detached)
 POSENET_PER_STEP = dict(FROZEN_PER_STEP)
+# the device input pipeline (config/ist_net_device_pipeline.yaml): the
+# train step's launches and kernel 11 once a step on the raw batch
+DEVICE_LOOP_PER_STEP = {**TRAIN_PER_STEP, "depth_fill": 1}
+# card vs CPU train preprocessing on one raw batch, same draws: points and
+# qo in metres (the fills differ by the bilateral's rounding), ColorJitter's
+# rgb in levels of 0..255 (float ops rounded apart around an HSV round trip)
+PRE_PTS_TOL, PRE_QO_TOL, PRE_RGB_TOL = 1e-5, 1e-5, 2e-3
 # the training loop through cli/train.py (phases 15-17): the shipped
 # configs' shapes, epochs cut; synthetic trees of LOOP_SCENES scenes
 LOOP_SCENES, LOOP_TEST_FRAMES = 8, 4
@@ -1536,6 +1553,9 @@ def phase_train_full_width(device) -> None:
           f"{len(g_gpu)} gradient tensors differ in their bits"
           + (f", by module {by_module} (first: {', '.join(differ[:3])})"
              if differ else ""))
+    if differ or not same_loss:
+        raise AssertionError("full width: a second card step from the same "
+                             "state does not repeat the first bit for bit")
     if (loss_err > FULL_LOSS_TOL or g_all > FULL_GRAD_TOL
             or worst[0][1] > FULL_GRAD_TENSOR_TOL):
         raise AssertionError(
@@ -1556,6 +1576,7 @@ def phase_train_timings(device) -> float:
     from istnet_tpu_torch.entry import build_train_model, make_train_batch
     from istnet_tpu_torch.train.train_state import (
         TrainConfig,
+        deterministic_cudnn,
         finish_step,
         make_optimizer,
         start_step,
@@ -1586,7 +1607,7 @@ def phase_train_timings(device) -> float:
     split = []
     for step in range(2 + TIMED_STEPS, 2 + 2 * TIMED_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        with no_gc():
+        with no_gc(), deterministic_cudnn():
             start_step(model, opt, step, cfg)
             ev[0].record()
             total, _ = step_loss(model, batch, gen, cfg)
@@ -1925,6 +1946,24 @@ def _device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def loop_summary(solver):
+    """The records of the epochs after the first (all if there is one),
+    their median ``T_iter`` / ``T_data`` / ``T_dispatch`` in ms, samples/s
+    over them, and the ``T_data`` of each epoch's first batch (it waits for
+    its loaders to start again)."""
+    import statistics
+    records = solver.records
+    first = records[0]["epoch"]
+    window = [r for r in records if r["epoch"] > first] or records
+    batch = solver.syn_loader.batch_size + solver.real_loader.batch_size
+    med = {k: statistics.median(r[k] for r in window) * 1e3
+           for k in ("T_iter", "T_data", "T_dispatch")}
+    rate = batch * len(window) / sum(r["T_iter"] for r in window)
+    firsts = [r["T_data"] * 1e3 for i, r in enumerate(window)
+              if i == 0 or r["epoch"] != window[i - 1]["epoch"]]
+    return window, med, rate, firsts
+
+
 def run_loop(label: str, argv: list[str], device, per_step: dict,
              bare: float | None = None, profiled: bool = False):
     """``cli/train.py`` main on ``argv``: every loss finite and every
@@ -1960,15 +1999,8 @@ def run_loop(label: str, argv: list[str], device, per_step: dict,
            if k not in ("epoch", "step") and not np.isfinite(v)]
     if bad:
         raise AssertionError(f"[{label}] non-finite records {bad[:5]}")
-    first = records[0]["epoch"]
-    window = [r for r in records if r["epoch"] > first] or records
+    window, med, rate, firsts = loop_summary(solver)
     batch = solver.syn_loader.batch_size + solver.real_loader.batch_size
-    med = {k: statistics.median(r[k] for r in window) * 1e3
-           for k in ("T_iter", "T_data", "T_dispatch")}
-    rate = batch * len(window) / sum(r["T_iter"] for r in window)
-    # an epoch's first batch waits for its loaders to start again
-    firsts = [r["T_data"] * 1e3 for i, r in enumerate(window)
-              if i == 0 or r["epoch"] != window[i - 1]["epoch"]]
     busy = ""
     if profiled:
         events = _device_events(prof)
@@ -2119,10 +2151,223 @@ def phase_two_phase(root: str, device) -> dict:
     return p1_counts
 
 
-def phase_training(device, bare: float) -> tuple[dict, dict]:
-    """Phases 15-17 in one temporary directory: the synthetic train trees
-    (LOOP_SCENES scenes each) and a test tree, then the loop, the resume
-    and the two-phase recipe; returns the loop's and PoseNetGT's launches."""
+def _raw_batch(root: str, cfg_path: str) -> dict:
+    """One raw batch of the device loop: the first batch of each of the
+    config's datasets over the trees under ``root`` (18 CAMERA + 6 Real
+    frames), concatenated as the Solver does, numpy."""
+    from istnet_tpu_torch.data.dataset import TrainingDataset
+    from istnet_tpu_torch.data.loader import collate
+    from istnet_tpu_torch.train.solver import concat_batches
+    from istnet_tpu_torch.utils import Config
+    cfg = Config.fromfile(cfg_path)
+    dl = cfg.train_dataloader
+    parts = []
+    for data_type, bs, seed in (("syn", int(dl.syn_bs), 1),
+                                ("real_withLabel", int(dl.real_bs), 2)):
+        ds = TrainingDataset(cfg.train_dataset, os.path.join(root, "data"),
+                             data_type=data_type, num_img_per_epoch=bs,
+                             seed=seed, device_preprocess=True)
+        ds.reset()
+        parts.append(collate([ds[i] for i in range(bs)]))
+    return concat_batches(*parts)
+
+
+def device_call(fn, calls: int = 5) -> tuple[float, float, float]:
+    """``fn``'s device us a call (its device events summed, torch.profiler),
+    launches a call and host ms to enqueue it (median of ``calls``, no
+    sync inside the timed call)."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(calls):
+        with no_gc():
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    us = sum(e.time_range.end - e.time_range.start for e in events) / calls
+    return us, len(events) / calls, statistics.median(host)
+
+
+def sync_sites(fn) -> list[str]:
+    """The synchronizing CUDA calls that torch's sync debug mode sees (it
+    does not see them all) in one call of ``fn``: the innermost frame of
+    this repository's code on each one's stack, as ``file:line``."""
+    import traceback
+    import warnings
+
+    import torch
+    sites = []
+
+    def show(*args, **kwargs):
+        frames = [f for f in traceback.extract_stack()
+                  if f.filename.startswith(REPO)
+                  and not f.filename.endswith("chip_smoke.py")]
+        sites.append(f"{os.path.relpath(frames[-1].filename, REPO)}:"
+                     f"{frames[-1].lineno}" if frames else "outside the repo")
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+def phase_device_loop(root: str, device, default_loop) -> tuple[dict, dict]:
+    """Phase 18: the device input pipeline at full width. ``cli/train.py``
+    on a copy of ``config/ist_net_device_pipeline.yaml`` cut to LOOP_EPOCHS
+    x LOOP_ITERS over the trees under ``root``: losses finite, launches
+    DEVICE_LOOP_PER_STEP a step, the loop's numbers beside phase 15's
+    (``default_loop``'s Solver); the busy share over one more, profiled,
+    epoch; then on one raw batch of the trees (B = 24): the card's
+    preprocessing against the CPU's with the same draws, and its device us,
+    launches and host enqueue ms part by part. Returns the loop's launches
+    and kernel 11's case at the path's shape."""
+    import numpy as np
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.data import device_augment as da
+    from istnet_tpu_torch.data import device_preprocess as dp
+    from istnet_tpu_torch.data import device_transforms as dt
+    from istnet_tpu_torch.data.transforms import IMAGENET_STD
+    from istnet_tpu_torch.train.train_state import prepare_batch
+    data = ["--data_dir", os.path.join(root, "data")]
+    cfg = _config_copy(root, "ist_net_device_pipeline.yaml",
+                       max_epoch=LOOP_EPOCHS,
+                       num_mini_batch_per_epoch=LOOP_ITERS)
+    solver = run_loop("device loop", ["--config", cfg, "--log_dir",
+                                      os.path.join(root, "log_device")]
+                      + data, device, DEVICE_LOOP_PER_STEP)
+    counts = ops.launch_counts()
+    (_, med, rate, _), (_, med15, rate15, _) = (loop_summary(solver),
+                                                loop_summary(default_loop))
+    print(f"[device loop] beside phase 15 (host data path, same trees): "
+          f"{rate:.1f} against {rate15:.1f} samples/s; median T_iter "
+          f"{med['T_iter']:.1f} / {med15['T_iter']:.1f} ms, T_data "
+          f"{med['T_data']:.1f} / {med15['T_data']:.1f}, T_dispatch "
+          f"{med['T_dispatch']:.1f} / {med15['T_dispatch']:.1f}")
+    del solver
+    one = _config_copy(root, "ist_net_device_pipeline.yaml", max_epoch=1,
+                       num_mini_batch_per_epoch=LOOP_ITERS)
+    run_loop("device loop, profiled epoch", ["--config", one, "--log_dir",
+                                             os.path.join(root, "log_dev1")]
+             + data, device, DEVICE_LOOP_PER_STEP, profiled=True)
+
+    raw_np = _raw_batch(root, cfg)
+    b = len(raw_np["depth_raw"])
+    g = torch.Generator().manual_seed(18)
+    pre = dp.draw_preprocess(b, g, TRAIN_POINTS)
+    pre["color"] = dt.draw_color_jitter(b, g)
+    aug = da.draw_augment(b, g)
+
+    def on(tree, dev):
+        return {k: on(v, dev) if isinstance(v, dict) else
+                (torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                 ).to(dev) for k, v in tree.items()}
+    preprocess = dp.make_train_preprocess(TRAIN_IMG, TRAIN_POINTS)
+    outs = []
+    t0 = time.perf_counter()
+    for dev in ("cpu", device):
+        out = preprocess(on(raw_np, dev), on(pre, dev))
+        outs.append(on(out, "cpu"))
+    (c, _), (k, _) = ((o["inputs"], o["labels"]) for o in outs)
+    scale = torch.from_numpy(IMAGENET_STD * 255)
+    errs = {"pts": (k["pts"] - c["pts"]).abs().max().item(),
+            "qo": (k["qo"] - c["qo"]).abs().max().item(),
+            "rgb": ((k["rgb"] - c["rgb"]) * scale).abs().max().item()}
+    if (not torch.equal(k["choose"], c["choose"])
+            or errs["pts"] > PRE_PTS_TOL or errs["qo"] > PRE_QO_TOL
+            or errs["rgb"] > PRE_RGB_TOL):
+        raise AssertionError(f"device loop: card vs CPU preprocessing, "
+                             f"choose equal {torch.equal(k['choose'], c['choose'])}"
+                             f", {errs}")
+    print(f"[device loop] one raw batch of the trees (B={b}, "
+          f"{tuple(raw_np['depth_raw'].shape[1:])}), card vs CPU "
+          f"preprocessing with the same draws ({time.perf_counter() - t0:.1f} "
+          f"s): choose equal; max abs err points {errs['pts']:.3g} m (bound "
+          f"{PRE_PTS_TOL:g}), qo {errs['qo']:.3g} ({PRE_QO_TOL:g}), rgb "
+          f"{errs['rgb']:.3g} levels ({PRE_RGB_TOL:g})")
+
+    r, d_pre, d_aug = on(raw_np, device), on(pre, device), on(aug, device)
+    from istnet_tpu_torch.cli.train import build_model
+    from istnet_tpu_torch.train.solver import device_pipeline
+    from istnet_tpu_torch.train.train_state import (
+        TrainConfig,
+        make_optimizer,
+        train_step,
+    )
+    from istnet_tpu_torch.utils import Config
+    train_cfg = TrainConfig.from_config(Config.fromfile(cfg))
+    model = build_model(Config.fromfile(cfg), train_cfg).to(device).train()
+    opt = make_optimizer(model, train_cfg)
+    hooks = device_pipeline(Config.fromfile(cfg), torch.float32)
+    gen = torch.Generator(device=device).manual_seed(0)
+    for step in range(2):
+        train_step(model, opt, r, step, gen, train_cfg, *hooks)
+    torch.cuda.synchronize()
+    sites = sync_sites(lambda: train_step(model, opt, r, 2, gen, train_cfg,
+                                          *hooks))
+    counted = {site: sites.count(site) for site in sites}
+    print(f"[device loop] torch's sync debug mode over one train step on the "
+          f"raw batch: {len(sites)} synchronizing calls"
+          + (": " + ", ".join(f"{k} x{v}" for k, v in counted.items())
+             if sites else ""))
+    del model, opt
+    depth = dp.fill_missing(r["depth_raw"])
+    inst = dp.preprocess_train_instances(
+        r["rgb_raw"], depth, r["mask_raw"], r["bbox"], r["intrinsics"],
+        r["rotation_label"], r["translation_label"], r["size_label"],
+        img_size=TRAIN_IMG, sample_num=TRAIN_POINTS, normalize=False,
+        v=d_pre["v"], noise=d_pre["noise"])
+    batch = preprocess(r, d_pre)
+    augment = da.make_device_augment(0.3, 0.3)
+    gen = torch.Generator(device=device).manual_seed(0)
+    parts = {
+        "fill (kernel 11)": lambda: dp.fill_missing(r["depth_raw"]),
+        "crop + sample + back-projection + jitter + qo + resize":
+            lambda: dp.preprocess_train_instances(
+                r["rgb_raw"], depth, r["mask_raw"], r["bbox"],
+                r["intrinsics"], r["rotation_label"], r["translation_label"],
+                r["size_label"], img_size=TRAIN_IMG, sample_num=TRAIN_POINTS,
+                normalize=False, v=d_pre["v"], noise=d_pre["noise"]),
+        "ColorJitter + normalisation":
+            lambda: dp.normalize_rgb(dt.color_jitter_batch(inst["rgb"],
+                                                           d_pre["color"])),
+        "augmentation": lambda: da.device_augment(batch, d_aug),
+        "whole, draws included": lambda: prepare_batch(r, gen, preprocess,
+                                                       augment),
+    }
+    for name, fn in parts.items():
+        us, launches, host = device_call(fn)
+        print(f"[device loop] preprocessing B={b}, {name}: device "
+              f"{us / 1e3:.3f} ms in {launches:.0f} launches, host enqueue "
+              f"{host:.3f} ms")
+    # kernel 11's input on this path: the batch's depth in metres, as
+    # fill_missing hands it on
+    fill_case = ((dp._div(r["depth_raw"].float(), 1000.0),), True)
+    return counts, {"depth_fill": [fill_case]}
+
+
+def phase_training(device, bare: float):
+    """Phases 15-18 in one temporary directory: the synthetic train trees
+    (LOOP_SCENES scenes each) and a test tree, then the loop, the resume,
+    the two-phase recipe and the device loop; returns the loop's,
+    PoseNetGT's and the device loop's launches and kernel 11's case on the
+    device loop's path."""
     import tempfile
 
     from istnet_tpu_torch.data import synthetic
@@ -2135,9 +2380,10 @@ def phase_training(device, bare: float) -> tuple[dict, dict]:
               f"{time.perf_counter() - t0:.1f} s")
         loop_counts, trained = phase_train_loop(root, device, bare)
         phase_resume(root, device, trained)
-        del trained
         p1_counts = phase_two_phase(root, device)
-    return loop_counts, p1_counts
+        device_counts, fill_case = phase_device_loop(root, device, trained)
+        del trained
+    return loop_counts, p1_counts, device_counts, fill_case
 
 
 def main() -> int:
@@ -2228,11 +2474,17 @@ def main() -> int:
         bare = phase_train_timings(device)
     record("train", "float32", errs_t, counts_t, times_t, list(train_cases))
 
-    loop_counts, posenet_counts = phase_training(device, bare)
+    loop_counts, posenet_counts, device_counts, fill_case = phase_training(
+        device, bare)
     record("train loop", "float32", errs_t, loop_counts, times_t,
            list(train_cases))
     record("posenet_gt", "float32", errs_t, posenet_counts, times_t,
            list(train_cases))
+    with policy(torch.float32):
+        errs_d = {**errs_t, **phase_kernels(fill_case, tag="device loop ")}
+        times_d = {**times_t, **time_kernels(fill_case, "device loop ")}
+    record("device loop", "float32", errs_d, device_counts, times_d,
+           ["depth_fill", *train_cases])
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device_info}))

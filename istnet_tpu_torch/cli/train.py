@@ -5,8 +5,9 @@
   [--device cpu]``
 
 Wires config -> model (``model_arch``: ``ist_net`` or ``posenet_gt``) ->
-the CAMERA and Real datasets (seeds ``rd_seed`` and ``rd_seed + 1``) ->
-their loaders -> ``Solver``, on the card unless ``--device cpu`` is given.
+the CAMERA and Real datasets (seeds ``rd_seed`` and ``rd_seed + 1``; raw
+frames under ``use_device_preprocess``) -> their loaders -> ``Solver``, on
+the card unless ``--device cpu`` is given.
 The two-phase recipe's second phase (``freeze_world_enhancer`` with
 ``world_enhancer_weights``) first moves PoseNetGT's world extractor in;
 ``--checkpoint_epoch`` resumes from ``log_dir/ckpt/<epoch>``: model,
@@ -127,6 +128,10 @@ def main(argv=None):
         step = int(payload["step"])
         logger.info(f"resumed from epoch {args.checkpoint_epoch} (step {step})")
 
+    if (cfg.train_dataset.get("use_device_aug", False)
+            and cfg.train_dataset.get("use_shape_aug", False)):
+        logger.warning("both use_device_aug and use_shape_aug enabled — "
+                       "samples would be augmented twice; disable one")
     dl_cfg = cfg.train_dataloader
     iters_per_epoch = train_cfg.iters_per_epoch
     seed0 = int(cfg.get("rd_seed", 1))

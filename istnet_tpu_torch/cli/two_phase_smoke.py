@@ -7,10 +7,9 @@ evaluation runs. Every step of the recipe runs through the CLIs, so the
 checkpoint format, the transplant, the frozen parameters and the eval
 restore are checked as a whole, at tiny shapes.
 
-One deviation from the JAX smoke: its phase 2 runs the train-side device
-pipeline (``use_device_preprocess`` / ``use_device_aug``), which the port
-does not have yet (ROADMAP.md queue 1, item 5); here phase 2 takes the host
-path (``use_shape_aug: True``) as phase 1 does.
+As in the JAX smoke, phase 1 takes the host input pipeline
+(``use_shape_aug``) and phase 2 the device one (``use_device_preprocess``,
+``use_device_aug``: raw frames, everything else inside the step).
 
 Usage:
     python -m istnet_tpu_torch.cli.two_phase_smoke [--work_dir DIR]
@@ -36,9 +35,7 @@ train_dataset:
   img_size: {img}
   sample_num: {pts}
   shift_range: 0.01
-  use_shape_aug: True
-  use_device_aug: False
-  aug_bb_pro: 0.3
+{pipeline}  aug_bb_pro: 0.3
   aug_rt_pro: 0.3
   aug_bc_pro: 0.0
   aug_pc_pro: 0.0
@@ -60,6 +57,16 @@ test:
 rd_seed: 1
 per_write: 1
 compute_dtype: float32
+"""
+
+HOST_PIPELINE = """\
+  use_shape_aug: True
+  use_device_aug: False
+"""
+DEVICE_PIPELINE = """\
+  use_shape_aug: False
+  use_device_aug: True
+  use_device_preprocess: True
 """
 
 PHASE1_CFG = """\
@@ -103,7 +110,7 @@ def main(argv=None) -> None:
     fmt = dict(img=args.img_size, pts=args.sample_num, iters=args.iters)
     p1_cfg = os.path.join(work, "posenet_gt_smoke.yaml")
     with open(p1_cfg, "w") as f:
-        f.write(PHASE1_CFG.format(**fmt))
+        f.write(PHASE1_CFG.format(pipeline=HOST_PIPELINE, **fmt))
     p1_log = os.path.join(work, "log_posenet_gt")
     device = ["--device", args.device]
 
@@ -116,11 +123,12 @@ def main(argv=None) -> None:
 
     p2_cfg = os.path.join(work, "ist_net_freeze_smoke.yaml")
     with open(p2_cfg, "w") as f:
-        f.write(PHASE2_CFG.format(we_ckpt=we_ckpt, **fmt))
+        f.write(PHASE2_CFG.format(we_ckpt=we_ckpt, pipeline=DEVICE_PIPELINE,
+                                  **fmt))
     p2_log = os.path.join(work, "log_ist_net_freeze")
 
     print("[two-phase] phase 2: IST-Net training (world enhancer "
-          "transplanted + frozen; host input pipeline) ...", flush=True)
+          "transplanted + frozen; device input pipeline) ...", flush=True)
     cli_train.main(["--config", p2_cfg, "--data_dir", data_dir,
                     "--log_dir", p2_log] + device)
 

@@ -11,6 +11,11 @@ points ``qo = (pts - t) / ||s|| @ R``, and the FS-Net bb / rt augmentation.
 A sample whose depth or mask is missing retries at a random index (an
 index the retry chain has tried draws again, where JAX would recurse
 forever).
+With ``device_preprocess=True`` a sample is the raw frame instead (no
+host fill): the depth, the colour image, the instance's mask, its box,
+the camera, the labels (R made canonical) and ``sym_info``, for the train
+step's device pipeline (``data/device_preprocess.py``); an instance with
+no pixel in the mask retries as above.
 ``reset()`` resamples the epoch. Every draw comes from a ``RandomState``
 seeded per sample from ``hash((seed, image, index))``, so the samples
 equal the JAX package's bit for bit and are safe under threaded loaders.
@@ -42,12 +47,6 @@ CAT_NAMES = ["bottle", "bowl", "camera", "can", "laptop", "mug"]
 CAMERA_INTRINSICS = [577.5, 577.5, 319.5, 239.5]
 REAL_INTRINSICS = [591.0125, 590.16775, 322.525, 244.11084]
 SYM_IDS = (0, 1, 3)  # bottle, bowl, can (0-indexed)
-
-DEVICE_PIPELINE_NOT_YET = (
-    "the train-side device pipeline (use_device_preprocess / use_device_aug)"
-    " is not ported yet: ROADMAP.md queue 1, item 5; use the host path "
-    "(use_shape_aug: True)")
-
 
 def sym_canonical_rotation(rotation: np.ndarray) -> np.ndarray:
     """Map R to its canonical form about y for the symmetric categories."""
@@ -85,18 +84,23 @@ class TrainingDataset:
     sizes the epoch (``reset()`` resamples it; -1: every image once),
     ``per_obj`` keeps the images holding that category (cached in
     ``data_dir/img_list``), ``seed`` seeds the per-sample streams and the
-    epoch resampling."""
+    epoch resampling, ``device_preprocess`` yields raw frames (the shape
+    augmentation then runs on the device: ``use_shape_aug`` is refused)."""
 
     def __init__(self, config, data_dir: str, data_type: str = "real_withLabel",
                  num_img_per_epoch: int = -1, use_fill_miss: bool = True,
                  use_composed_img: bool = True, per_obj: str = "", seed: int | None = None,
                  device_preprocess: bool = False):
-        if device_preprocess:
-            raise NotImplementedError(DEVICE_PIPELINE_NOT_YET)
         self.config = config
         self.data_dir = data_dir
         self.data_type = data_type
         self.use_shape_aug = config.get("use_shape_aug", False)
+        self.device_preprocess = device_preprocess
+        if device_preprocess and self.use_shape_aug:
+            raise ValueError(
+                "device_preprocess emits raw arrays (no host pts); shape "
+                "augmentation must run on device too — set use_device_aug "
+                "instead of use_shape_aug")
         self.num_img_per_epoch = num_img_per_epoch
         self.use_fill_miss = use_fill_miss
         self.use_composed_img = use_composed_img
@@ -199,7 +203,7 @@ class TrainingDataset:
             depth = load_depth(img_path)
         if depth is None:
             return None
-        if self.use_fill_miss:
+        if self.use_fill_miss and not self.device_preprocess:
             depth = fill_missing(depth, self.norm_scale, 1)
 
         with open(img_path + "_label.pkl", "rb") as f:
@@ -212,6 +216,8 @@ class TrainingDataset:
         else:
             idx = rng.randint(0, num_instance)
         cat_id = gts["class_ids"][idx] - 1  # 0-indexed
+        if self.device_preprocess:
+            return self._raw_sample(img_path, depth, mask, gts, idx, cat_id)
 
         rmin, rmax, cmin, cmax = get_bbox(gts["bboxes"][idx])
         inst_mask = np.equal(mask, gts["instance_ids"][idx])
@@ -266,6 +272,33 @@ class TrainingDataset:
             out.update(pts=pc, rotation_label=r, translation_label=t,
                        size_label=s, model=model_new, qo=nocs)
         return out
+
+    def _raw_sample(self, img_path: str, depth: np.ndarray, mask: np.ndarray,
+                    gts: dict, idx: int, cat_id: int) -> dict | None:
+        """The raw frame of instance ``idx``, or None where its mask is
+        empty."""
+        inst_mask = np.equal(mask, gts["instance_ids"][idx])
+        if not inst_mask.any():
+            return None
+        translation = gts["translations"][idx].astype(np.float32)
+        rotation = gts["rotations"][idx].astype(np.float32)
+        size = (gts["scales"][idx] * gts["sizes"][idx]).astype(np.float32)
+        if cat_id in SYM_IDS:
+            rotation = sym_canonical_rotation(rotation)
+        return {
+            "depth_raw": depth.astype(np.float32),
+            "rgb_raw": np.ascontiguousarray(
+                cv2.imread(img_path + "_color.png")[:, :, :3][:, :, ::-1],
+                np.uint8),
+            "mask_raw": inst_mask,
+            "bbox": np.asarray(gts["bboxes"][idx], np.int32),
+            "intrinsics": np.asarray(self.intrinsics, np.float32),
+            "category_label": np.int64(cat_id),
+            "rotation_label": rotation,
+            "translation_label": translation,
+            "size_label": size,
+            "sym_info": get_sym_info(CAT_NAMES[cat_id], mug_handle=1),
+        }
 
 
 class TestDataset:

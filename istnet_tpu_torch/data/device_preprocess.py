@@ -1,19 +1,23 @@
 """Device-side preprocessing of raw frames on torch tensors: depth
 completion, back-projection, square crop, in-mask point sampling and the
-RGB resize, batched over instances.
+RGB resize, batched over instances; on the train side also the point
+jitter, the NOCS target, ColorJitter and the ImageNet normalisation.
 
-Counterpart of the test side of ``istnet_tpu/data/device_preprocess.py``
-(the train side, with its jitter and NOCS targets, is not here yet). The
-functions run on whatever device their tensors lie on. What the JAX module
+Counterpart of ``istnet_tpu/data/device_preprocess.py``. The functions run
+on whatever device their tensors lie on. What the JAX module
 does to please XLA on a TPU is not carried over: its blocked cumulative sum
 and closed-form search are ``torch.cumsum`` and ``torch.searchsorted``, its
 padded ``dynamic_slice`` crops are index arithmetic into the one frame, and
 its two resize contractions are a two-tap gather with the same weights.
 
-Random numbers: the sampler draws one uniform per stratum. The public
-functions take a ``torch.Generator`` on the tensors' device, or the
-uniforms ``v (K, sample_num)`` themselves, which is how a test or a
-card-against-CPU check feeds two sides the same numbers.
+Random numbers: the sampler draws one uniform per stratum, the train side
+a normal a point coordinate for the jitter and ColorJitter's draws
+(``data/device_transforms.py``). The public functions take a
+``torch.Generator`` on the tensors' device, or the draws themselves (the
+uniforms ``v (K, sample_num)``, the normals ``noise (K, sample_num, 3)``),
+which is how a test or a card-against-CPU check feeds two sides the same
+numbers. Nothing here waits for the card: no value is read back, no
+tensor is built from host data inside a call.
 
 Indices that JAX's gathers clamp silently are clamped here: an instance
 with no valid pixel (a padding row of a bucket) has its flat indices capped
@@ -23,12 +27,15 @@ pixel, so that nothing downstream indexes out of range on the card.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from istnet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from istnet_tpu_torch.ops import dispatch
 
 MAX_CROP = 440  # get_bbox's largest square window
+SHIFT_RANGE = 0.005  # the jitter's clamp, fixed as the reference fixes it
 
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -145,6 +152,19 @@ def sample_valid_cells(ok: torch.Tensor, v: torch.Tensor
     return flat_idx.clamp(max=n - 1), count.long()
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """ImageNet's mean and std on ``device``, copied there once."""
+    return (torch.from_numpy(IMAGENET_MEAN).to(device),
+            torch.from_numpy(IMAGENET_STD).to(device))
+
+
+def normalize_rgb(rgb: torch.Tensor) -> torch.Tensor:
+    """0..255 float rgb -> ImageNet-normalised."""
+    mean, std = _imagenet(rgb.device)
+    return (_div(rgb, 255.0) - mean) / std
+
+
 def _preprocess(frames_rgb, frames_depth, frame_of, masks, bboxes, intrinsics,
                 generator, v, img_size, sample_num, norm_scale, normalize):
     device = frames_depth.device
@@ -185,9 +205,7 @@ def _preprocess(frames_rgb, frames_depth, frame_of, masks, bboxes, intrinsics,
     rgb = _resize_half_pixel(frames_rgb, frame_of, rmin, cmin, crop_w,
                              img_size)
     if normalize:
-        mean = torch.from_numpy(IMAGENET_MEAN).to(device)
-        std = torch.from_numpy(IMAGENET_STD).to(device)
-        rgb = (_div(rgb, 255.0) - mean) / std
+        rgb = normalize_rgb(rgb)
     return {"rgb": rgb, "pts": pts, "choose": choose,
             "n_valid": count.to(torch.int32), "flat_idx": flat_idx}
 
@@ -229,3 +247,91 @@ def preprocess_shared_image(rgb: torch.Tensor, depth_mm: torch.Tensor,
     return _preprocess(rgb[None], depth_mm[None], frame_of, masks, bboxes,
                        intrinsics, generator, v, img_size, sample_num,
                        norm_scale, True)
+
+
+def preprocess_train_instances(rgb: torch.Tensor, depth_mm: torch.Tensor,
+                               masks: torch.Tensor, bboxes: torch.Tensor,
+                               intrinsics: torch.Tensor,
+                               rotation: torch.Tensor,
+                               translation: torch.Tensor, size: torch.Tensor,
+                               generator: torch.Generator | None = None,
+                               img_size: int = 192, sample_num: int = 1024,
+                               normalize: bool = True,
+                               v: torch.Tensor | None = None,
+                               noise: torch.Tensor | None = None) -> dict:
+    """The train side of ``preprocess_instances``: its outputs with the
+    points jittered by ``clamp(0.001 * noise, +-SHIFT_RANGE)`` and the NOCS
+    target ``qo = (pts - t) / (||s|| + 1e-8) @ R`` (R made canonical for
+    the symmetric classes on the host). ``noise (B, N, 3)`` standard
+    normals, drawn from ``generator`` when not given; with ``normalize``
+    False the rgb stays 0..255 for ColorJitter."""
+    out = preprocess_instances(rgb, depth_mm, masks, bboxes, intrinsics,
+                               generator, img_size, sample_num,
+                               normalize=normalize, v=v)
+    if noise is None:
+        noise = torch.randn(out["pts"].shape, generator=generator,
+                            device=out["pts"].device)
+    pts = out["pts"] + (0.001 * noise).clamp(-SHIFT_RANGE, SHIFT_RANGE)
+    scale = torch.linalg.norm(size, dim=-1)[:, None, None] + 1e-8
+    qo = (pts - translation[:, None, :]) / scale
+    out["pts"] = pts
+    out["qo"] = qo @ rotation.to(qo.dtype)
+    return out
+
+
+def draw_preprocess(b: int, generator: torch.Generator,
+                    sample_num: int = 1024, device=None) -> dict:
+    """The sampler's uniforms ``v (b, sample_num)`` and the jitter's
+    normals ``noise (b, sample_num, 3)`` from ``generator`` (on ``device``,
+    the generator's by default)."""
+    device = torch.device(device if device is not None else generator.device)
+    return {"v": torch.rand(b, sample_num, generator=generator, device=device),
+            "noise": torch.randn(b, sample_num, 3, generator=generator,
+                                 device=device)}
+
+
+def make_train_preprocess(img_size: int = 192, sample_num: int = 1024,
+                          use_fill_miss: bool = True):
+    """The whole train input pipeline on the raw batch's device:
+    ``preprocess(raw, generator_or_draws) -> {"inputs", "labels"}`` with the
+    JAX package's keys. ``raw`` is a collated batch of
+    ``TrainingDataset(device_preprocess=True)``: ``depth_raw`` (B, H, W)
+    float32 mm, ``rgb_raw`` (B, H, W, 3) uint8, ``mask_raw`` (B, H, W)
+    bool, ``bbox`` (B, 4), ``intrinsics`` (B, 4), the pose labels,
+    ``category_label`` and ``sym_info``. Steps: depth completion (kernel 11
+    on a card), crop, sampling, back-projection, jitter, ``qo``, resize,
+    ColorJitter, normalisation. The second argument is a
+    ``torch.Generator`` or the draws: ``{"v", "noise"}`` of
+    ``draw_preprocess`` and ``"color"``, those of
+    ``device_transforms.draw_color_jitter``."""
+    from istnet_tpu_torch.data import device_transforms
+
+    def preprocess(raw: dict, generator_or_draws) -> dict:
+        depth = raw["depth_raw"].float()
+        b = depth.shape[0]
+        if isinstance(generator_or_draws, dict):
+            draws = generator_or_draws
+        else:
+            draws = {**draw_preprocess(b, generator_or_draws, sample_num,
+                                       depth.device),
+                     "color": device_transforms.draw_color_jitter(
+                         b, generator_or_draws, device=depth.device)}
+        if use_fill_miss:
+            depth = fill_missing(depth)
+        out = preprocess_train_instances(
+            raw["rgb_raw"], depth, raw["mask_raw"], raw["bbox"],
+            raw["intrinsics"], raw["rotation_label"],
+            raw["translation_label"], raw["size_label"], img_size=img_size,
+            sample_num=sample_num, normalize=False,
+            v=draws["v"], noise=draws["noise"])
+        rgb = device_transforms.color_jitter_batch(out["rgb"], draws["color"])
+        inputs = {"rgb": normalize_rgb(rgb), "pts": out["pts"],
+                  "choose": out["choose"],
+                  "category_label": raw["category_label"].to(torch.int32),
+                  "qo": out["qo"], "sym_info": raw["sym_info"]}
+        labels = {"rotation_label": raw["rotation_label"],
+                  "translation_label": raw["translation_label"],
+                  "size_label": raw["size_label"], "qo": out["qo"]}
+        return {"inputs": inputs, "labels": labels}
+
+    return preprocess

@@ -16,6 +16,10 @@ sets the bf16 deployment precision before ``entry()``.
 and batches at the training width, B=24 (``syn_bs`` 18 + ``real_bs`` 6 of
 ``config/ist_net_default.yaml``).
 
+``make_train_raw_batch`` is the raw batch of the train step's device
+pipeline (``TrainingDataset(device_preprocess=True)``'s arrays), as
+``tools/train_bench.py::make_synth_raw_batch`` makes it.
+
 ``make_frame`` and ``build_device_forward`` are the serving path's entry:
 a synthetic raw 480 x 640 RGB-D frame with instance masks, and the function
 that takes such a frame to poses on the model's device
@@ -169,6 +173,43 @@ def build_serving_model(dtype: torch.dtype = torch.bfloat16,
 
 
 FRAME_H, FRAME_W = 480, 640
+
+
+def make_train_raw_batch(b: int = TRAIN_BATCH, seed: int = 0,
+                         device: str | torch.device = "cuda") -> dict:
+    """A raw train batch from a numpy ``RandomState(seed)``, the arrays of
+    ``tools/train_bench.py::make_synth_raw_batch``: per sample a box of
+    depth 800-1200 mm with 15% holes on an empty frame, its mask 5 pixels
+    inside it, noise rgb, the REAL camera, identity rotations, ``t = (0, 0,
+    1)`` m, random sizes, ``sym_info`` 0."""
+    device = on_device(device, "make_train_raw_batch")
+    h, w = FRAME_H, FRAME_W
+    rng = np.random.RandomState(seed)
+    depth = np.zeros((b, h, w), np.float32)
+    masks = np.zeros((b, h, w), bool)
+    bboxes = np.zeros((b, 4), np.int32)
+    for i in range(b):
+        y0, x0 = rng.randint(40, h - 240), rng.randint(40, w - 240)
+        hh, ww = rng.randint(80, 200), rng.randint(80, 200)
+        depth[i, y0:y0 + hh, x0:x0 + ww] = 800 + 400 * rng.rand(hh, ww)
+        hole = rng.rand(hh, ww) < 0.15
+        depth[i, y0:y0 + hh, x0:x0 + ww][hole] = 0
+        masks[i, y0 + 5:y0 + hh - 5, x0 + 5:x0 + ww - 5] = True
+        bboxes[i] = [y0 + 5, x0 + 5, y0 + hh - 5, x0 + ww - 5]
+    arrays = {
+        "depth_raw": depth,
+        "rgb_raw": (rng.rand(b, h, w, 3) * 255).astype(np.uint8),
+        "mask_raw": masks,
+        "bbox": bboxes,
+        "intrinsics": np.tile(np.asarray(
+            [591.0125, 590.16775, 322.525, 244.11084], np.float32), (b, 1)),
+        "category_label": rng.randint(0, 6, size=b).astype(np.int64),
+        "rotation_label": np.tile(np.eye(3, dtype=np.float32), (b, 1, 1)),
+        "translation_label": np.asarray([[0.0, 0.0, 1.0]] * b, np.float32),
+        "size_label": np.abs(rng.rand(b, 3).astype(np.float32)) + 0.05,
+        "sym_info": np.zeros((b, 4), np.int32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
 def make_frame(seed: int = 0, k: int = 6, n_tiny: int = 0,

@@ -45,10 +45,13 @@ WORLD_RADII = ((0.05, 0.10), (0.10, 0.20), (0.20, 0.30), (0.30, 0.40))
 
 def gather_by_choose(feat_map: torch.Tensor, choose: torch.Tensor
                      ) -> torch.Tensor:
-    """(B, H, W, C), (B, N) -> (B, N, C) per-point pixel features."""
+    """(B, H, W, C), (B, N) -> (B, N, C) per-point pixel features. An
+    indexed read, whose backward (``index_put_`` with accumulation) sums
+    the rows of a repeated pixel in a fixed order on the card; the
+    backward of ``torch.gather`` adds them by atomics in no fixed order."""
     b, h, w, c = feat_map.shape
-    index = choose.long()[..., None].expand(-1, -1, c)
-    return torch.gather(feat_map.reshape(b, h * w, c), 1, index)
+    rows = torch.arange(b, device=feat_map.device)[:, None]
+    return feat_map.reshape(b, h * w, c)[rows, choose.long()]
 
 
 class WorldSpaceEnhancer(nn.Module):

@@ -18,6 +18,8 @@ matrices of the resizes are cast to the map's dtype.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -188,14 +190,50 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     Equals ``jax.image.resize(..., "bilinear")`` when upsampling (both use
     half-pixel centres and clamp at the edges); the two differ when
     downsampling (JAX antialiases), which PSP never does, so that raises.
+    The backward is ``_UpsampleBilinear``'s, in a fixed order.
     """
     _, h, w, _ = x.shape
     if out_h < h or out_w < w:
         raise ValueError(f"resize_bilinear upsamples only: {h}x{w} -> "
                          f"{out_h}x{out_w}")
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w),
-                      mode="bilinear", align_corners=False)
+    y = _UpsampleBilinear.apply(x.permute(0, 3, 1, 2), out_h, out_w)
     return y.permute(0, 2, 3, 1)
+
+
+def _half_pixel_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) weights of align_corners=False linear upsampling, as
+    PyTorch's kernel takes them: source ``(i + 0.5) * in / out - 0.5``
+    clamped at 0, its two taps clamped at the edge."""
+    a = np.zeros((out_size, in_size), np.float64)
+    pos = np.maximum((np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5,
+                     0.0)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    rows = np.arange(out_size)
+    np.add.at(a, (rows, lo), 1.0 - (pos - lo))
+    np.add.at(a, (rows, hi), pos - lo)
+    return a
+
+
+class _UpsampleBilinear(torch.autograd.Function):
+    """``F.interpolate(bilinear, align_corners=False)`` of an NCHW map, its
+    backward two contractions with the transposed interpolation matrices.
+    PyTorch's own backward adds each output's share into its input pixels
+    by atomics on the card, in no fixed order, so two steps from one state
+    differed in their bits; the contractions sum in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, out_h: int, out_w: int):
+        ctx.in_hw = x.shape[-2:]
+        return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h, w), (out_h, out_w) = ctx.in_hw, g.shape[-2:]
+        ah = _matrix_on(_half_pixel_matrix, h, out_h, g)
+        aw = _matrix_on(_half_pixel_matrix, w, out_w, g)
+        return torch.einsum("ih,ncij,jw->nchw", ah, g, aw), None, None
 
 
 def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -215,10 +253,22 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
     return a
 
 
-def _as_tensor(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """``a`` cast to ``like``'s dtype (bf16 rounds the interpolation
-    weights themselves, as JAX's ``jnp.asarray(a, x.dtype)``)."""
-    return torch.tensor(a, dtype=like.dtype, device=like.device)
+def _matrix_on(build, in_size: int, out_size: int,
+               like: torch.Tensor) -> torch.Tensor:
+    """``build(in_size, out_size)`` cast to ``like``'s dtype (bf16 rounds
+    the interpolation weights themselves, as JAX's ``jnp.asarray(a,
+    x.dtype)``) on ``like``'s device, copied there once per shape."""
+    return _cached_matrix(build, in_size, out_size, like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_matrix(build, in_size: int, out_size: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    # a normal tensor even when first asked for under inference_mode, so
+    # that a later training step can save it for its backward
+    with torch.inference_mode(False):
+        return torch.tensor(build(in_size, out_size), dtype=dtype,
+                            device=device)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
@@ -227,8 +277,8 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
     contractions with ``_interp_matrix`` (nn.Upsample(scale_factor=2,
     mode='bilinear', align_corners=True) in the reference's PSPUpsample)."""
     _, h, w, _ = x.shape
-    ah = _as_tensor(_interp_matrix(h, out_h), x)
-    aw = _as_tensor(_interp_matrix(w, out_w), x)
+    ah = _matrix_on(_interp_matrix, h, out_h, x)
+    aw = _matrix_on(_interp_matrix, w, out_w, x)
     y = torch.einsum("ih,bhwc->biwc", ah, x)
     return torch.einsum("jw,biwc->bijc", aw, y)
 
@@ -261,8 +311,8 @@ def conv3x3_on_doubled(x: torch.Tensor, k: torch.Tensor,
     cout = k.shape[-1]
     km = k.permute(2, 0, 1, 3).reshape(cin, 9 * cout)
     y = (x.reshape(-1, cin) @ km).reshape(bsz, h, w, 3, 3, cout)
-    s_y = _as_tensor(_shifted_interp_matrix(h, 2 * h), x)   # (2h, 3, h)
-    s_x = _as_tensor(_shifted_interp_matrix(w, 2 * w), x)   # (2w, 3, w)
+    s_y = _matrix_on(_shifted_interp_matrix, h, 2 * h, x)   # (2h, 3, h)
+    s_x = _matrix_on(_shifted_interp_matrix, w, 2 * w, x)   # (2w, 3, w)
     t = torch.einsum("idh,bhwdec->biwec", s_y, y)
     out = torch.einsum("jew,biwec->bijc", s_x, t)
     return out if b is None else out + b

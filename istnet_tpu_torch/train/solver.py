@@ -5,9 +5,15 @@ Each iteration takes one batch of each loader, concatenates them
 (``concat_batches``: one step on the ``syn_bs + real_bs`` rows equals the
 reference's batch-size-weighted pair of losses, every term being a batch
 mean), splits it into inputs and labels (``split_batch``) and takes one
-``train_step``. Each epoch resamples the datasets and holds the reference's
-contract of exactly ``num_mini_batch_per_epoch`` iterations; every 5th
-epoch writes a checkpoint.
+``train_step``. With ``train_dataset.use_device_preprocess`` the loaders
+yield raw arrays and the flat raw batch goes to the device unsplit: the
+step's ``preprocess_fn`` (``data/device_preprocess.py``) makes its inputs
+and labels there. With ``use_device_aug`` the step's ``augment_fn``
+(``data/device_augment.py``) applies the box stretch and the rigid motion;
+the other augmentations exist only on the host, so a config that asks for
+them with it is refused. Each epoch resamples the datasets and holds the
+reference's contract of exactly ``num_mini_batch_per_epoch`` iterations;
+every 5th epoch writes a checkpoint.
 
 The host never waits on the card inside an epoch but for the metrics: the
 loss parts stay device tensors and are read (``.item()``) ``pipeline_depth``
@@ -29,7 +35,8 @@ import time
 import numpy as np
 import torch
 
-from istnet_tpu_torch.data.dataset import DEVICE_PIPELINE_NOT_YET
+from istnet_tpu_torch.data.device_augment import make_device_augment
+from istnet_tpu_torch.data.device_preprocess import make_train_preprocess
 from istnet_tpu_torch.train import checkpoints
 from istnet_tpu_torch.train.train_state import TrainConfig, train_step
 from istnet_tpu_torch.utils.logging import LogBuffer, MetricWriter
@@ -56,17 +63,56 @@ def concat_batches(a: dict, b: dict) -> dict:
 
 def to_device(batch: dict, device: torch.device,
               float_dtype: torch.dtype) -> dict:
-    """Numpy leaves -> tensors on ``device``, floats in ``float_dtype``;
-    to a card through a fresh pinned buffer, without waiting."""
-    def put(a: np.ndarray) -> torch.Tensor:
+    """Numpy leaves of a split (``{"inputs", "labels"}``) or a flat raw
+    batch -> tensors on ``device``, floats in ``float_dtype`` but the raw
+    depth, which stays float32 (the fill runs in float32); to a card
+    through a fresh pinned buffer, without waiting."""
+    def put(key: str, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         else:
             t = t.to(device)
-        return t.to(float_dtype) if t.is_floating_point() else t
-    return {part: {k: put(v) for k, v in leaves.items()}
+        return (t.to(float_dtype) if t.is_floating_point()
+                and key != "depth_raw" else t)
+    return {k: ({kk: put(kk, vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else put(k, v))
+            for k, v in batch.items()}
+
+
+def in_dtype(batch: dict, float_dtype: torch.dtype) -> dict:
+    """A ``{"inputs", "labels"}`` batch with its float tensors in
+    ``float_dtype``."""
+    return {part: {k: v.to(float_dtype) if v.is_floating_point() else v
+                   for k, v in leaves.items()}
             for part, leaves in batch.items()}
+
+
+def device_pipeline(config, float_dtype: torch.dtype):
+    """The step's ``(preprocess_fn, augment_fn)`` for ``config``'s
+    ``train_dataset`` / ``train_dataloader``, each None where the config
+    keeps that part on the host. The jitter's 0.005 clamp is fixed, as the
+    reference fixes it (its config's ``shift_range`` is read by nothing)."""
+    td = config.get("train_dataset") or {}
+    dl = config.get("train_dataloader") or {}
+    preprocess_fn = augment_fn = None
+    if td.get("use_device_preprocess", False):
+        preprocess = make_train_preprocess(
+            img_size=int(td.get("img_size", 192)),
+            sample_num=int(td.get("sample_num", 1024)),
+            use_fill_miss=bool(dl.get("use_fill_miss", True)))
+
+        def preprocess_fn(raw: dict, generator) -> dict:
+            return in_dtype(preprocess(raw, generator), float_dtype)
+    if td.get("use_device_aug", False):
+        for k in ("aug_bc_pro", "aug_pc_pro", "aug_nl_pro"):
+            if float(td.get(k, 0.0)) > 0.0:
+                raise ValueError(
+                    f"use_device_aug supports only bb/rt augs; {k} > 0 "
+                    "requires the host path (use_shape_aug)")
+        augment_fn = make_device_augment(float(td.get("aug_bb_pro", 0.3)),
+                                         float(td.get("aug_rt_pro", 0.3)))
+    return preprocess_fn, augment_fn
 
 
 class Solver:
@@ -83,9 +129,6 @@ class Solver:
         par = config.get("parallel") or {}
         if int(par.get("fsdp", 1)) > 1:
             raise NotImplementedError(PARALLEL_NOT_YET)
-        td = config.get("train_dataset") or {}
-        if td.get("use_device_preprocess", False) or td.get("use_device_aug", False):
-            raise NotImplementedError(DEVICE_PIPELINE_NOT_YET)
         self.model = model
         self.optimizer = optimizer
         self.train_cfg = train_cfg
@@ -105,6 +148,8 @@ class Solver:
         self.records: list[dict] = []
         param = next(model.parameters())
         self.device, self.dtype = param.device, param.dtype
+        self.preprocess_fn, self.augment_fn = device_pipeline(config,
+                                                              self.dtype)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(config.get("rd_seed", 1)))
 
@@ -175,10 +220,13 @@ class Solver:
                 end_iteration(t_data0)
             t_start = t_data0
             merged = concat_batches(syn_np, real_np) if real_np is not None else syn_np
-            batch = to_device(split_batch(merged), self.device, self.dtype)
+            if self.preprocess_fn is None:
+                merged = split_batch(merged)
+            batch = to_device(merged, self.device, self.dtype)
             t0 = time.perf_counter()
             parts = train_step(self.model, self.optimizer, batch, self.step,
-                               self.generator, self.train_cfg)
+                               self.generator, self.train_cfg,
+                               self.preprocess_fn, self.augment_fn)
             t1 = time.perf_counter()
             records.append({"epoch": epoch, "step": self.step,
                             "lr": self.train_cfg.lr(self.step),

@@ -17,6 +17,16 @@
 - The reference computes its synthetic and real losses separately and
   weights them by batch size; every term is a batch mean, so that equals
   the loss of the concatenated batch, which is what one step takes.
+- The device input pipeline (``use_device_preprocess`` /
+  ``use_device_aug``) runs inside the step, as JAX's ``make_train_step``
+  hooks run it: ``preprocess_fn`` turns a raw batch into inputs and labels,
+  ``augment_fn`` applies the FS-Net augmentation, both without a graph and
+  with their draws taken from the step's generator before the dropout's.
+- The step repeats bit for bit on the card: its forward and backward run
+  with cuDNN restricted to deterministic algorithms
+  (``deterministic_cudnn``), and the model's own backward sums (the PSP
+  resize, the per-point gather, the kernels' scatters) run in a fixed
+  order.
 - ``TrainConfig.from_config`` reads a YAML config as
   ``istnet_tpu/cli/train.py`` and ``make_optimizer`` read it; its
   ``model_arch`` picks the loss: ``ist_net`` (``supervised_loss``) or
@@ -25,6 +35,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -156,6 +167,20 @@ def step_loss(model: torch.nn.Module, batch: dict,
                            cfg.gamma2, cfg.freeze_world_enhancer)
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms, then set back: the
+    weight gradients of the RGB trunk's convolutions otherwise come from
+    algorithms that sum in no fixed order, and two steps from one state
+    differ in their bits."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
 def finish_step(model: torch.nn.Module, optimizer: torch.optim.Adam,
                 step: int, cfg: TrainConfig) -> None:
     """The update after the backward: Adam, then the scheduled BN EMA."""
@@ -163,15 +188,33 @@ def finish_step(model: torch.nn.Module, optimizer: torch.optim.Adam,
     update_bn_stats(model, cfg.momentum(step))
 
 
+def prepare_batch(batch: dict, generator: torch.Generator,
+                  preprocess_fn=None, augment_fn=None) -> dict:
+    """The step's input pipeline, without a graph: ``preprocess_fn(raw,
+    generator) -> {"inputs", "labels"}`` when ``batch`` is a raw batch,
+    then ``augment_fn(batch, generator)``; their draws come from
+    ``generator`` in that order, before the forward's dropout masks."""
+    with torch.no_grad():
+        if preprocess_fn is not None:
+            batch = preprocess_fn(batch, generator)
+        if augment_fn is not None:
+            batch = augment_fn(batch, generator)
+    return batch
+
+
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Adam,
                batch: dict, step: int, generator: torch.Generator,
-               cfg: TrainConfig) -> dict:
+               cfg: TrainConfig, preprocess_fn=None, augment_fn=None) -> dict:
     """One update of ``model`` (in train mode) on ``batch`` (``{"inputs",
-    "labels"}``) at step count ``step`` (0 for the first), dropout masks
-    from ``generator``. Returns the detached loss parts (``total`` and the
-    terms of ``supervised_loss``)."""
+    "labels"}``, or a raw batch with ``preprocess_fn``) at step count
+    ``step`` (0 for the first), the input pipeline's draws
+    (``prepare_batch``) and the dropout masks from ``generator``. Returns
+    the detached loss parts (``total`` and the terms of
+    ``supervised_loss``)."""
+    batch = prepare_batch(batch, generator, preprocess_fn, augment_fn)
     start_step(model, optimizer, step, cfg)
-    total, parts = step_loss(model, batch, generator, cfg)
-    total.backward()
+    with deterministic_cudnn():
+        total, parts = step_loss(model, batch, generator, cfg)
+        total.backward()
     finish_step(model, optimizer, step, cfg)
     return {k: v.detach() for k, v in parts.items()}

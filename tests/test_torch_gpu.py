@@ -1086,21 +1086,26 @@ def _full_width_config(name, **overrides):
     return cfg
 
 
+_TRAIN_PER_STEP = dict(fps=8, ball_query_group=8, fp_interpolate=8,
+                       ball_query=6, group_scatter=6, three_nn=8,
+                       interp_scatter=8)
+
+
 @pytest.mark.parametrize("name,per_step", [
-    ("ist_net_default.yaml", dict(fps=8, ball_query_group=8, fp_interpolate=8,
-                                  ball_query=6, group_scatter=6, three_nn=8,
-                                  interp_scatter=8)),
+    ("ist_net_default.yaml", _TRAIN_PER_STEP),
     ("posenet_gt_default.yaml", dict(fps=8, ball_query_group=8,
                                      fp_interpolate=8, ball_query=3,
                                      group_scatter=3, three_nn=4,
                                      interp_scatter=4)),
+    ("ist_net_device_pipeline.yaml", dict(_TRAIN_PER_STEP, depth_fill=1)),
 ])
 def test_solver_steps_at_full_width_from_a_synthetic_tree(cuda, tmp_path, name,
                                                           per_step):
     """The shipped config's model, loaders and Solver (B = 18 + 6, N = 1024,
     192 x 192, SA npoints 512/256/128/64), cut to one epoch of 2 steps:
     finite losses, the step count, and every kernel launched as often as
-    the step's path asks (PoseNetGT: the world extractor's backward only)."""
+    the step's path asks (PoseNetGT: the world extractor's backward only;
+    the device input pipeline: kernel 11 once a step)."""
     from istnet_tpu_torch.cli.train import build_model
     from istnet_tpu_torch.data import synthetic
     from istnet_tpu_torch.data.dataset import TrainingDataset
@@ -1114,9 +1119,10 @@ def test_solver_steps_at_full_width_from_a_synthetic_tree(cuda, tmp_path, name,
     train_cfg = TrainConfig.from_config(cfg)
     model = build_model(cfg, train_cfg).to(cuda).train()
     dl = cfg.train_dataloader
+    raw = bool(cfg.train_dataset.get("use_device_preprocess", False))
     loaders = [DataLoader(TrainingDataset(cfg.train_dataset, data_dir,
                                           data_type=t, num_img_per_epoch=2 * bs,
-                                          seed=s), bs)
+                                          seed=s, device_preprocess=raw), bs)
                for t, bs, s in (("syn", int(dl.syn_bs), 1),
                                 ("real_withLabel", int(dl.real_bs), 2))]
     solver = Solver(model, make_optimizer(model, train_cfg), train_cfg, cfg,
@@ -1160,3 +1166,112 @@ def test_checkpoint_written_on_the_card_restores_on_the_cpu(cuda, tmp_path):
     assert all(not s["step"].is_cuda for s in opt.state_dict()["state"].values())
     for k, v in model.state_dict().items():
         assert torch.equal(card_model.state_dict()[k], v), k
+
+
+# ---------------------------------------------------------------------------
+# The train step's device input pipeline
+# ---------------------------------------------------------------------------
+
+def _train_draws(b, sample_num, seed):
+    """The device pipeline's draws, made on the CPU from ``seed``."""
+    from istnet_tpu_torch.data import device_augment, device_preprocess
+    from istnet_tpu_torch.data import device_transforms
+
+    g = torch.Generator().manual_seed(seed)
+    pre = device_preprocess.draw_preprocess(b, g, sample_num)
+    pre["color"] = device_transforms.draw_color_jitter(b, g)
+    return pre, device_augment.draw_augment(b, g)
+
+
+def _on(tree, device):
+    return {k: _on(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def test_device_train_preprocess_matches_the_cpu(cuda):
+    """At the training batch (24 raw 480 x 640 frames, N = 1024, 192 x
+    192), the card's preprocessing (kernel 11 and the torch ops) against
+    the CPU's plain one with the same draws: ``choose`` and ``n_valid``
+    equal, points within 1e-5 m (the fills differ by their bilateral's
+    rounding, 1e-5 m allowed), ColorJitter's rgb within 2e-3 of a level,
+    ``qo`` within 1e-5, each step of the pipeline once."""
+    from istnet_tpu_torch.data import device_preprocess as dp
+    from istnet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+    from istnet_tpu_torch.entry import make_train_raw_batch
+
+    raw = make_train_raw_batch(24, seed=3, device="cpu")
+    pre, _ = _train_draws(24, 1024, 4)
+    outs = []
+    for device in ("cpu", cuda):
+        r = _on(raw, device)
+        depth = dp.fill_missing(r["depth_raw"])
+        inst = dp.preprocess_train_instances(
+            r["rgb_raw"], depth, r["mask_raw"], r["bbox"], r["intrinsics"],
+            r["rotation_label"], r["translation_label"], r["size_label"],
+            v=pre["v"].to(device), noise=pre["noise"].to(device))
+        whole = dp.make_train_preprocess()(r, _on(pre, device))
+        outs.append(({k: v.cpu() for k, v in inst.items()},
+                     _on(whole, "cpu")))
+    (inst_cpu, whole_cpu), (inst_gpu, whole_gpu) = outs
+    assert torch.equal(inst_gpu["n_valid"], inst_cpu["n_valid"])
+    assert torch.equal(inst_gpu["choose"], inst_cpu["choose"])
+    assert (inst_gpu["pts"] - inst_cpu["pts"]).abs().max() <= 1e-5
+    g, c = whole_gpu["inputs"], whole_cpu["inputs"]
+    assert torch.equal(g["choose"], c["choose"])
+    assert (g["pts"] - c["pts"]).abs().max() <= 1e-5
+    assert (g["qo"] - c["qo"]).abs().max() <= 1e-5
+    scale = torch.from_numpy(IMAGENET_STD * 255)
+    assert ((g["rgb"] - c["rgb"]) * scale).abs().max() <= 2e-3
+    assert torch.equal(whole_gpu["labels"]["qo"], g["qo"])
+
+
+def test_device_train_pipeline_waits_for_nothing(cuda):
+    """One preprocessing and augmentation call of the step on the card
+    under ``torch.cuda.set_sync_debug_mode("error")``, its draws from a
+    card generator: no host sync inside; kernel 11 launches once."""
+    from istnet_tpu_torch.data.device_augment import make_device_augment
+    from istnet_tpu_torch.data.device_preprocess import make_train_preprocess
+    from istnet_tpu_torch.entry import make_train_raw_batch
+    from istnet_tpu_torch.train.train_state import prepare_batch
+
+    raw = make_train_raw_batch(24, seed=5, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    fns = (make_train_preprocess(), make_device_augment())
+    prepare_batch(raw, gen, *fns)          # builds its constant tables
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch = prepare_batch(raw, gen, *fns)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.launch_counts() == _counts(depth_fill=1)
+    assert batch["inputs"]["pts"].shape == (24, 1024, 3)
+    assert all(torch.isfinite(v).all() for part in batch.values()
+               for v in part.values() if v.is_floating_point())
+
+
+def test_card_train_step_repeats_bit_for_bit(cuda):
+    """Two default-recipe steps on the card from one state, batch and
+    generator seed: the loss parts and every gradient equal in their bits
+    (the RGB branch's backward sums in a fixed order: the PSP resize, the
+    per-point gather and, cuDNN deterministic inside the step, the trunk's
+    convolutions)."""
+    batch = make_train_batch(2, 128, 48, seed=5, device=cuda)
+    runs, init = [], None
+    for _ in range(2):
+        model = build_train_model(cuda, seed=3, sa_npoints=(32, 16, 8, 8))
+        if init is None:
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(init)
+        cfg = TrainConfig()
+        parts = train_step(model, make_optimizer(model, cfg), batch, 0,
+                           torch.Generator(device=cuda).manual_seed(1), cfg)
+        runs.append(({k: v.cpu() for k, v in parts.items()},
+                     {k: p.grad.cpu() for k, p in model.named_parameters()
+                      if p.grad is not None}))
+    (l1, g1), (l2, g2) = runs
+    assert all(torch.equal(l1[k], l2[k]) for k in l1)
+    differ = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+    assert not differ, differ[:5]

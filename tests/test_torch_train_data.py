@@ -154,9 +154,53 @@ def test_a_missing_depth_retries_at_a_random_index(trees):
 
 
 def test_device_preprocess_is_refused_with_its_roadmap_item(trees):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        dataset.TrainingDataset(_cfg(AUG, Config), trees[0],
-                                device_preprocess=True)
+    """Raw frames leave no host points to augment: ``device_preprocess``
+    with ``use_shape_aug`` is refused with the JAX package's ValueError
+    (``use_device_aug`` augments on the device instead)."""
+    for ds in (dataset, jax_dataset):
+        with pytest.raises(ValueError, match="set use_device_aug instead"):
+            ds.TrainingDataset(_cfg(AUG, Config), trees[0],
+                               device_preprocess=True)
+
+
+@pytest.mark.parametrize("data_type", ["syn", "real_withLabel"])
+def test_raw_samples_equal_the_jax_packages_over_two_epochs(trees, data_type,
+                                                           monkeypatch):
+    """``device_preprocess=True``: the raw frame of each sample (no host
+    fill) equal to JAX's, keys, dtypes and values, over two resampled
+    epochs; a frame whose instance mask is empty retries as JAX does."""
+    port, ref = trees
+    cfg = {"img_size": IMG, "sample_num": NPTS, "use_shape_aug": False,
+           "use_device_aug": True, **AUG}
+    kw = dict(data_type=data_type, num_img_per_epoch=5, seed=3,
+              device_preprocess=True)
+    got_ds = dataset.TrainingDataset(Config(cfg), port, **kw)
+    want_ds = jax_dataset.TrainingDataset(JaxConfig(cfg), ref, **kw)
+    for _ in range(2):
+        got_ds.reset()
+        want_ds.reset()
+        np.testing.assert_array_equal(got_ds.img_index, want_ds.img_index)
+        for i in range(len(got_ds)):
+            _assert_samples_equal(got_ds[i], want_ds[i])
+    s = got_ds[0]
+    assert s["depth_raw"].shape == s["mask_raw"].shape == (480, 640)
+    assert s["rgb_raw"].dtype == np.uint8 and s["mask_raw"].any()
+    assert (s["depth_raw"] == 0).any()       # raw: the holes stay
+    # a frame whose mask holds no pixel of its instance retries at an index
+    # drawn from the sample's stream, on both sides
+    import cv2
+    blank = got_ds.img_list[got_ds.img_index[0]] + "_mask.png"
+    real_imread, blanked = cv2.imread, []
+
+    def imread(path, *args):
+        img = real_imread(path, *args)
+        if path.endswith(blank):
+            blanked.append(path)
+            return np.zeros_like(img)
+        return img
+    monkeypatch.setattr(cv2, "imread", imread)
+    _assert_samples_equal(got_ds[0], want_ds[0])
+    assert len(blanked) >= 2
 
 
 def test_loader_batches_equal_the_jax_packages_over_two_epochs(trees):

@@ -201,10 +201,12 @@ def _loaders(cfg, data_dir):
     """The two loaders ``cli/train.py`` builds from ``cfg``."""
     dl, iters = cfg.train_dataloader, int(cfg.num_mini_batch_per_epoch)
     out = []
+    raw = bool(cfg.train_dataset.get("use_device_preprocess", False))
     for data_type, bs, seed in (("syn", int(dl.syn_bs), 1),
                                 ("real_withLabel", int(dl.real_bs), 2)):
         ds = TrainingDataset(cfg.train_dataset, data_dir, data_type=data_type,
-                             num_img_per_epoch=iters * bs, seed=seed)
+                             num_img_per_epoch=iters * bs, seed=seed,
+                             device_preprocess=raw)
         out.append(DataLoader(ds, bs, num_workers=int(dl.num_workers)))
     return out
 
@@ -285,15 +287,20 @@ def test_solver_losses_match_jax_train_step(root, tmp_path, monkeypatch):
 
 
 def test_solver_refuses_what_is_not_ported(root):
+    """FSDP names its ROADMAP item; the device augmentation with a host-only
+    augmentation (box cage, point noise, non-linear) raises the JAX
+    package's ValueError."""
     model = torch.nn.Linear(2, 2)
     cfg = TrainConfig()
     opt = make_optimizer(model, cfg)
-    for extra, item in (({"parallel": {"fsdp": 4}}, "item 8"),
-                        ({"train_dataset": {"use_device_aug": True}}, "item 5"),
-                        ({"train_dataset": {"use_device_preprocess": True}},
-                         "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            Solver(model, opt, cfg, Config({"max_epoch": 1, **extra}))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Solver(model, opt, cfg, Config({"max_epoch": 1,
+                                         "parallel": {"fsdp": 4}}))
+    for k in ("aug_bc_pro", "aug_pc_pro", "aug_nl_pro"):
+        td = {"use_device_aug": True, k: 0.5}
+        with pytest.raises(ValueError, match=f"only bb/rt augs; {k} > 0"):
+            Solver(model, opt, cfg, Config({"max_epoch": 1,
+                                             "train_dataset": td}))
 
 
 # ---------------------------------------------------------------------------

@@ -2,6 +2,7 @@
 """Where the full-width training loop loses to the bare step.
 
     python3 tools/train_loop_torch.py [--iters 12] [--workers 1,2,4,8]
+        [--device-pipeline]
     python3 tools/train_loop_torch.py --host      # no card needed
 
 Needs one CUDA card and nvcc. With ``config/ist_net_default.yaml``'s model
@@ -21,10 +22,19 @@ first waits for the loaders' first batch), and the medians of ``T_iter``,
 ``T_data`` and ``T_dispatch`` (``train/solver.py``). The first output
 lines are the host's CPU count and the card's name and power limit.
 
+``--device-pipeline`` runs the same three on
+``config/ist_net_device_pipeline.yaml``: the loaders yield raw frames and
+the step preprocesses and augments them on the card, so the bare step is
+``train_step`` with its ``preprocess_fn`` / ``augment_fn`` on one raw batch
+already on the card. It adds the raw batch's copy to the card (its bytes,
+the host's ms to pin it and enqueue the copy, the ms until it is there) and
+the preprocessing's device ms, launches and host enqueue ms a step
+(``chip_smoke.device_call``).
+
 ``--host`` times the data path alone on the host it runs on, no card
-needed: a CAMERA sample of the default config (mean over 24), the OpenCV
-fill of one frame, a PNG decode, and a batch of 18 from a ``DataLoader``
-of 1 and of 4 threads.
+needed: a CAMERA sample of the default config (mean over 24) and a raw
+one of the device pipeline's, the OpenCV fill of one frame, a PNG decode,
+and a batch of 18 from a ``DataLoader`` of 1 and of 4 threads.
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ class _Cached:
 
     def __init__(self, batches: list[dict]):
         self.batches = batches
-        self.batch_size = len(batches[0]["pts"])
+        self.batch_size = len(next(iter(batches[0].values())))
         self.dataset = None
 
     def __len__(self) -> int:
@@ -90,6 +100,15 @@ def host_times() -> None:
         ds[0]
         it = iter(range(24))
         print(f"[host] a sample {ms(lambda: ds[next(it)], 24):.1f} ms")
+        raw_cfg = Config.fromfile(os.path.join(
+            REPO, "config", "ist_net_device_pipeline.yaml"))
+        raw = TrainingDataset(raw_cfg.train_dataset, data_dir,
+                              data_type="syn", num_img_per_epoch=48, seed=1,
+                              device_preprocess=True)
+        raw.reset()
+        it = iter(range(24))
+        print(f"[host] a raw sample (device pipeline) "
+              f"{ms(lambda: raw[next(it)], 24):.1f} ms")
         frame = os.path.join(data_dir, "Real", "train", "scene_1", "0000")
         depth = depth_utils.load_depth(frame)
         print(f"[host] the OpenCV fill of a frame "
@@ -108,6 +127,9 @@ def main() -> int:
     ap.add_argument("--workers", default="1,2,4,8")
     ap.add_argument("--host", action="store_true",
                     help="time the data path on the host alone")
+    ap.add_argument("--device-pipeline", action="store_true",
+                    help="config/ist_net_device_pipeline.yaml: raw frames, "
+                         "preprocessed and augmented on the card")
     args = ap.parse_args()
     sys.path.append(REPO)
     print(f"os.cpu_count() {os.cpu_count()}")
@@ -128,14 +150,19 @@ def main() -> int:
     from istnet_tpu_torch.data.loader import DataLoader
     from istnet_tpu_torch.nn import precision
     from istnet_tpu_torch.train.solver import (
-        Solver, concat_batches, split_batch, to_device)
+        Solver, concat_batches, device_pipeline, split_batch, to_device)
     from istnet_tpu_torch.train.train_state import (
-        TrainConfig, make_optimizer, train_step)
+        TrainConfig, make_optimizer, prepare_batch, train_step)
     from istnet_tpu_torch.utils import Config
 
     device = torch.device("cuda", 0)
     precision.set_compute_dtype(torch.float32)
-    cfg = Config.fromfile(os.path.join(REPO, "config", "ist_net_default.yaml"))
+    name = ("ist_net_device_pipeline.yaml" if args.device_pipeline
+            else "ist_net_default.yaml")
+    print(f"config/{name}")
+    cfg = Config.fromfile(os.path.join(REPO, "config", name))
+    hooks = device_pipeline(cfg, torch.float32)
+    raw = hooks[0] is not None
     cfg["max_epoch"] = 1
     cfg["num_mini_batch_per_epoch"] = args.iters
     train_cfg = TrainConfig.from_config(cfg)
@@ -155,7 +182,7 @@ def main() -> int:
                 ds = TrainingDataset(cfg.train_dataset, data_dir,
                                      data_type=data_type,
                                      num_img_per_epoch=args.iters * bs,
-                                     seed=seed)
+                                     seed=seed, device_preprocess=raw)
                 out.append(DataLoader(ds, bs, num_workers=workers))
             return out
 
@@ -171,29 +198,53 @@ def main() -> int:
         cached = [list(syn), list(real)]
 
         gen = torch.Generator(device=device).manual_seed(0)
-        one = to_device(split_batch(concat_batches(cached[0][0], cached[1][0])),
-                        device, torch.float32)
+        merged = concat_batches(cached[0][0], cached[1][0])
+        one = to_device(merged if raw else split_batch(merged), device,
+                        torch.float32)
         for step in range(2):
-            train_step(model, opt, one, step, gen, train_cfg)
+            train_step(model, opt, one, step, gen, train_cfg, *hooks)
         torch.cuda.synchronize()
         host = []
         t0 = time.perf_counter()
         for step in range(2, 2 + args.iters):
             t1 = time.perf_counter()
-            train_step(model, opt, one, step, gen, train_cfg)
+            train_step(model, opt, one, step, gen, train_cfg, *hooks)
             host.append((time.perf_counter() - t1) * 1e3)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / args.iters
         print(f"[bare] {batch / wall:.1f} samples/s ({wall * 1e3:.1f} ms a "
               f"step); host time to enqueue a step median "
               f"{statistics.median(host):.1f} ms")
-
         print(_line("cached", epoch(_Cached(cached[0]), _Cached(cached[1]), 1),
                     batch))
         for i, workers in enumerate(int(w) for w in args.workers.split(",")):
             syn, real = loaders(workers)
             print(_line(f"loaders, {workers} threads each",
                         epoch(syn, real, 2 + i), batch))
+        if raw:
+            # last: no profiler session runs before a timed loop
+            from chip_smoke import device_call
+
+            nbytes = sum(a.nbytes for a in merged.values())
+            copies = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                to_device(merged, device, torch.float32)
+                t2 = time.perf_counter()
+                torch.cuda.synchronize()
+                copies.append(((t2 - t1) * 1e3,
+                               (time.perf_counter() - t1) * 1e3))
+            print(f"[copy] a raw batch of {nbytes / 1e6:.1f} MB: pin and "
+                  f"enqueue median "
+                  f"{statistics.median(c[0] for c in copies):.1f} ms, on "
+                  f"the card after "
+                  f"{statistics.median(c[1] for c in copies):.1f} ms")
+            us, launches, enqueue = device_call(
+                lambda: prepare_batch(one, gen, *hooks))
+            print(f"[preprocess] a step's preprocessing and augmentation: "
+                  f"device {us / 1e3:.3f} ms in {launches:.0f} launches, "
+                  f"host enqueue {enqueue:.3f} ms")
+
     return 0
 
 
