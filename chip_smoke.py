@@ -63,7 +63,29 @@ then the float32 train step (``train/train_state.py``):
    gradients, and a second card step from the same state repeating the
    first bit for bit;
 10. train timings: median step ms over 10 steps with its forward, backward
-   and update split (CUDA events), peak memory.
+   and update split (CUDA events), peak memory, for the default recipe and
+   the frozen one;
+
+then the bf16 train policy (``config/ist_net_2048pt_dp.yaml``'s):
+
+19. train bf16: every kernel of the bf16 step at its shapes against its
+   plain version (the grouping writing bf16 from bf16 features, the FP
+   stages on bf16 features, both scatters on bf16 cotangents); the
+   per-point gather's bf16 backward card against CPU bit for bit; 3
+   default and 2 frozen steps at B=24 with the checks of 8; one full-width
+   step at B=2 against the CPU float64 step within the BF16_FULL_* bounds
+   and a second card step bit-equal; the default and the frozen step's
+   median ms, split, peak memory and launches a step;
+
+then 2048 points (the 2048-point config's ``sample_num``):
+
+20. eval 2048: the eval kernels at N = 2048's shapes against their plain
+   versions, the B=32 forward under float32 and bf16 (launches, outputs,
+   card against CPU at B=2 within 2e-4 / 5e-3, ms);
+21. train 2048: the bf16 step's kernels at N = 2048 (frozen recipe), 2
+   frozen bf16 steps at B=24 with the checks of 8, the step's median ms
+   and peak memory; the train-side device sampler at ``sample_num`` 2048,
+   card against CPU on SAMPLER_FRAMES raw frames;
 
 then the serving path from a raw frame (``eval/test_loop.py``), under the
 float32 policy and, for 11-13, the bf16 one too:
@@ -119,7 +141,13 @@ directory:
    the card's preprocessing against the CPU's with the same draws
    (``choose`` equal, points and ``qo`` within 1e-5 m, rgb within 2e-3 of
    a level), then its device us, launches and host enqueue ms part by
-   part; kernel 11 at the path's shape against its plain version.
+   part; kernel 11 at the path's shape against its plain version;
+22. 2048 config (run between 17 and 18, from 17's PoseNetGT checkpoint):
+   ``config/ist_net_2048pt_dp.yaml`` (frozen, bf16, 2048 points) through
+   ``cli/train.py`` for 5 epochs of 2 steps, its world enhancer from phase
+   17's epoch-5 PoseNetGT checkpoint, launches ``FROZEN_PER_STEP`` a step,
+   the numbers of 15 and its busy share; ``cli/test.py`` on its epoch-5
+   checkpoint at ``test.sample_num`` 2048 under bf16: finite APs.
 
 Before the last line come the card's name and power limit (first line) and a
 JSON object of per-kernel results with each kernel's bound; the last line is
@@ -237,6 +265,18 @@ FULL_REF_BATCH = 2
 FULL_LOSS_TOL = 1e-5
 FULL_GRAD_TOL = 2e-2
 FULL_GRAD_TENSOR_TOL = 0.5
+# the same step under the bf16 policy (config/ist_net_2048pt_dp.yaml's),
+# card against CPU float64, bounds ~3-5x over the port's own bf16 drift of
+# this step on the CPU (bf16 CPU step against the float64 one, same
+# weights and batch; PERF.md §6): loss parts, relative (measured
+# 2.0e-3); gradients normwise over all (0.32); per tensor above
+# REF_GRAD_FLOOR, the median tensor (0.54; a tensor whose largest gradient
+# is rounding noise, a BN affine, drifts by up to 2.1 of it)
+BF16_FULL_LOSS_TOL = 1e-2
+BF16_FULL_GRAD_TOL = 1.0
+BF16_FULL_GRAD_TENSOR_TOL = 1.5
+# the train sampler at sample_num 2048, card against CPU: raw frames
+SAMPLER_FRAMES = 4
 
 # the serving path from a raw frame: one 480 x 640 frame of 6 instances in a
 # bucket of 8; the loops over a synthetic tree
@@ -353,8 +393,18 @@ def _epilogue(rng, cout):
                      np.full(cout, 0.25)])
 
 
-def kernel_cases(device, batch: int = 0):
-    """Per kernel, the argument tuples of its path shapes, on ``device``."""
+def _eval_shapes(points: int):
+    """The FPS, grouping and FP shapes of a forward (eval or train) of
+    ``points`` points: SA 1's input and FP 1's output take N; the rest
+    keep their N = 1024 shapes (the SA stages sample 512/256/128/64)."""
+    return (((points,) + FPS_SHAPES[0][1:],) + FPS_SHAPES[1:],
+            ((points,) + BQG_SHAPES[0][1:],) + BQG_SHAPES[1:],
+            FP_SHAPES[:-1] + ((points,) + FP_SHAPES[-1][1:],))
+
+
+def kernel_cases(device, batch: int = 0, points: int = 1024):
+    """Per kernel, the argument tuples of its path shapes, on ``device``,
+    for a forward of ``points`` points."""
     import numpy as np
     import torch
 
@@ -362,18 +412,19 @@ def kernel_cases(device, batch: int = 0):
     from istnet_tpu_torch.ops import fold_upsample
 
     batch = batch or BATCH
+    fps_shapes, bqg_shapes, fp_shapes = _eval_shapes(points)
     rng = np.random.RandomState(0)
     cases = {"fps": [], "ball_query_group": [], "fp_interpolate": [],
              "fold_upsample": []}
-    for n, npoint in FPS_SHAPES:
+    for n, npoint in fps_shapes:
         cases["fps"].append((_points(rng, batch, n).to(device), npoint))
-    for (n, m, cf), radii in zip(BQG_SHAPES, CAM_RADII):
+    for (n, m, cf), radii in zip(bqg_shapes, CAM_RADII):
         xyz = _points(rng, batch, n).to(device)
         feats = (None if cf == 0 else torch.from_numpy(
             rng.randn(batch, n, cf).astype("float32")).to(device))
         cases["ball_query_group"].append(
             (radii, NSAMPLES, xyz, xyz[:, :m].contiguous(), feats))
-    for n, m, c in FP_SHAPES:
+    for n, m, c in fp_shapes:
         unknown = _points(rng, batch, n).to(device)
         feats = torch.from_numpy(rng.randn(batch, m, c).astype("float32"))
         cases["fp_interpolate"].append(
@@ -401,12 +452,12 @@ def _folded(rng, c_in, channels, device):
     return tuple(layers)
 
 
-def kernel_cases_bf16(device, batch: int = 0):
-    """The bf16 path's cases: per kernel a list of (argument tuple, on the
-    path). The fused SA case at stage 1's shape is #7's function; the model
-    keeps stage 1 unfused, so it is checked and timed but off the path. The
-    fold's and the fused SA's weights come packed ahead, as the modules
-    hand them over."""
+def kernel_cases_bf16(device, batch: int = 0, points: int = 1024):
+    """The bf16 path's cases for a forward of ``points`` points: per kernel
+    a list of (argument tuple, on the path). The fused SA case at stage 1's
+    shape is #7's function; the model keeps stage 1 unfused, so it is
+    checked and timed but off the path. The fold's and the fused SA's
+    weights come packed ahead, as the modules hand them over."""
     import numpy as np
     import torch
 
@@ -418,12 +469,13 @@ def kernel_cases_bf16(device, batch: int = 0):
     rng = np.random.RandomState(1)
     cases = {"ball_query_group": [], "fp_interpolate": [],
              "fold_upsample": [], "sa_fused": []}
-    n, m, _ = BQG_SHAPES[0]
+    _, bqg_shapes, fp_shapes = _eval_shapes(points)
+    n, m, _ = bqg_shapes[0]
     xyz = _points(rng, batch, n).to(device)
     cases["ball_query_group"].append(
         ((CAM_RADII[0], NSAMPLES, xyz, xyz[:, :m].contiguous(), None, bf16),
          True))
-    for n, m, c in FP_SHAPES:
+    for n, m, c in fp_shapes:
         unknown = _points(rng, batch, n).to(device)
         feats = _f32(rng.randn(batch, m, c), device).to(bf16)
         cases["fp_interpolate"].append(
@@ -451,9 +503,15 @@ def kernel_cases_bf16(device, batch: int = 0):
     return cases
 
 
-def train_kernel_cases(device):
+def train_kernel_cases(device, points: int = TRAIN_POINTS, bf16: bool = False,
+                       frozen: bool = False):
     """The train step's kernels at its shapes: per kernel a list of
-    (argument tuple, launches of that case in one default-recipe step).
+    (argument tuple, launches of that case in one default-recipe step, or
+    one frozen-recipe step with ``frozen``: the world extractor's backward
+    cases are then checked but off the path). ``points``: the clouds' N
+    (SA 1's input, FP 1's output); ``bf16``: the bf16 policy's data, the
+    grouping writing bf16 from bf16 features, the FP stages interpolating
+    bf16 features and both scatters taking bf16 cotangents.
     The inputs follow the path: a train batch's centred points through the
     camera extractor's SA stages and its NOCS points (``qo``) through the
     world extractor's, each stage's centres the plain FPS of its input,
@@ -469,39 +527,49 @@ def train_kernel_cases(device):
     from istnet_tpu_torch.models.ist_net import CAM_RADII, WORLD_RADII
     from istnet_tpu_torch.ops import pointnet2 as plain
 
+    import torch
+
     rng = np.random.RandomState(2)
     b = TRAIN_BATCH
-    inputs = make_train_batch(b, TRAIN_POINTS, TRAIN_IMG, seed=2,
+    data = torch.bfloat16 if bf16 else torch.float32
+
+    def rand(*shape):
+        return _f32(rng.randn(*shape), device).to(data)
+    inputs = make_train_batch(b, points, TRAIN_IMG, seed=2,
                               device=device)["inputs"]
     cam = inputs["pts"] - inputs["pts"].mean(dim=1, keepdim=True)
+    _, bqg_shapes, fp_shapes = _eval_shapes(points)
+    out_dtype = (torch.bfloat16,) if bf16 else ()
     cases = {name: [] for name, k in TRAIN_PER_STEP.items() if k}
-    for cloud, radii_list in ((cam, CAM_RADII), (inputs["qo"], WORLD_RADII)):
+    for cloud, radii_list, back in ((cam, CAM_RADII, 1),
+                                    (inputs["qo"], WORLD_RADII,
+                                     0 if frozen else 1)):
         levels = [cloud]
-        for (n, m, cf), radii in zip(BQG_SHAPES, radii_list):
+        for (n, m, cf), radii in zip(bqg_shapes, radii_list):
             xyz = levels[-1]
             new_xyz = plain.gather_points(xyz,
                                           plain.furthest_point_sample(xyz, m))
             levels.append(new_xyz)
-            feats = None if cf == 0 else _f32(rng.randn(b, n, cf), device)
+            feats = None if cf == 0 else rand(b, n, cf)
             cases["fps"].append(((xyz, m), 1))
             cases["ball_query_group"].append(
-                ((radii, NSAMPLES, xyz, new_xyz, feats), 1))
+                ((radii, NSAMPLES, xyz, new_xyz, feats, *out_dtype), 1))
             if cf == 0:
                 continue
-            cases["ball_query"].append(((radii, NSAMPLES, xyz, new_xyz), 1))
+            cases["ball_query"].append(((radii, NSAMPLES, xyz, new_xyz),
+                                        back))
             idx = plain.ball_query_multi(radii, NSAMPLES, xyz, new_xyz)
-            grads = [_f32(rng.randn(b, m, ns, 3 + cf), device)
-                     for ns in NSAMPLES]
-            cases["group_scatter"].append(((idx, grads, n), 1))
-        for k, (n, m, c) in enumerate(FP_SHAPES):
+            grads = [rand(b, m, ns, 3 + cf) for ns in NSAMPLES]
+            cases["group_scatter"].append(((idx, grads, n), back))
+        for k, (n, m, c) in enumerate(fp_shapes):
             unknown, known = levels[3 - k], levels[4 - k]
             cases["fp_interpolate"].append(
-                ((unknown, known, _f32(rng.randn(b, m, c), device)), 1))
-            cases["three_nn"].append(((unknown, known, True), 1))
+                ((unknown, known, rand(b, m, c)), 1))
+            cases["three_nn"].append(((unknown, known, True), back))
             dist, idx = plain.three_nn(unknown, known)
             weight = plain.three_interpolate_weights(dist)
             cases["interp_scatter"].append(
-                ((_f32(rng.randn(b, n, c), device), idx, weight, m), 1))
+                ((rand(b, n, c), idx, weight, m), back))
     return cases
 
 
@@ -702,12 +770,13 @@ def phase_kernels(cases, bf16: bool = False, tag: str = "") -> dict:
     return errs
 
 
-def phase_forward(model, device, per_forward: dict, tag: str = "") -> dict:
+def phase_forward(model, device, per_forward: dict, tag: str = "",
+                  points: int = 1024) -> dict:
     import torch
 
     from istnet_tpu_torch import ops
     from istnet_tpu_torch.entry import make_inputs
-    batches = [make_inputs(BATCH, seed=1 + i, device=device)
+    batches = [make_inputs(BATCH, points, seed=1 + i, device=device)
                for i in range(SERVED_BATCHES)]
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -728,7 +797,7 @@ def phase_forward(model, device, per_forward: dict, tag: str = "") -> dict:
     eye = torch.eye(3, device=device)
     for out in outs:
         shapes = {k: tuple(v.shape) for k, v in out.items()}
-        if shapes != {"pred_qo": (BATCH, 1024, 3),
+        if shapes != {"pred_qo": (BATCH, points, 3),
                       "pred_rotation": (BATCH, 3, 3),
                       "pred_translation": (BATCH, 3),
                       "pred_size": (BATCH, 3)}:
@@ -746,13 +815,13 @@ def phase_forward(model, device, per_forward: dict, tag: str = "") -> dict:
 
 
 def phase_reference(model, device, atol: float = CPU_ATOL,
-                    tag: str = "") -> None:
+                    tag: str = "", points: int = 1024) -> None:
     import torch
 
     from istnet_tpu_torch.entry import build_model, make_inputs
     cpu = build_model("cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    inp = make_inputs(2, seed=7, device="cpu")
+    inp = make_inputs(2, points, seed=7, device="cpu")
     with torch.inference_mode():
         want = cpu(inp)
         got = model({k: v.to(device) for k, v in inp.items()})
@@ -1338,9 +1407,11 @@ def _check_grads(name, label, got, want, tols) -> None:
           f"err " + ", ".join(errs))
 
 
-def phase_train_steps(device) -> dict:
-    """3 default-recipe and 2 frozen-recipe steps at the training width;
-    returns the launches of all 5 steps."""
+def phase_train_steps(device, dtype=None, points: int = TRAIN_POINTS,
+                      recipes=("default", "frozen"), tag: str = "") -> dict:
+    """TRAIN_STEPS default-recipe and FROZEN_STEPS frozen-recipe steps at
+    the training width under the compute policy ``dtype`` (float32 if
+    None), clouds of ``points``; returns the launches of all the steps."""
     import torch
 
     from istnet_tpu_torch import ops
@@ -1351,19 +1422,20 @@ def phase_train_steps(device) -> dict:
         make_optimizer,
         train_step,
     )
+    dtype = dtype or torch.float32
     totals: dict = {}
     torch.cuda.reset_peak_memory_stats(device)
-    for cfg, steps, per_step in ((TrainConfig(), TRAIN_STEPS, TRAIN_PER_STEP),
-                                 (TrainConfig.frozen(), FROZEN_STEPS,
-                                  FROZEN_PER_STEP)):
-        recipe = "frozen" if cfg.freeze_world_enhancer else "default"
+    plan = {"default": (TrainConfig(), TRAIN_STEPS, TRAIN_PER_STEP),
+            "frozen": (TrainConfig.frozen(), FROZEN_STEPS, FROZEN_PER_STEP)}
+    for recipe in recipes:
+        cfg, steps, per_step = plan[recipe]
         model = build_train_model(device, seed=0,
                                   freeze_world_enhancer=cfg.freeze_world_enhancer,
-                                  sa_npoints=TRAIN_SA_NPOINTS)
+                                  sa_npoints=TRAIN_SA_NPOINTS, dtype=dtype)
         opt = make_optimizer(model, cfg)
         gen = torch.Generator(device=device).manual_seed(0)
         for step in range(steps):
-            batch = make_train_batch(TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG,
+            batch = make_train_batch(TRAIN_BATCH, points, TRAIN_IMG,
                                      seed=10 + step, device=device)
             before = {k: p.detach().clone()
                       for k, p in model.named_parameters()}
@@ -1377,17 +1449,19 @@ def phase_train_steps(device) -> dict:
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts = ops.launch_counts()
-            tag = f"{recipe} step {step} (B={TRAIN_BATCH}, {seconds:.3f} s)"
+            label = (f"{tag}{recipe} step {step} (B={TRAIN_BATCH}, "
+                     f"N={points}, {seconds:.3f} s)")
             if counts != per_step:
-                raise AssertionError(f"{tag}: launches {counts}, expected "
+                raise AssertionError(f"{label}: launches {counts}, expected "
                                      f"{per_step}")
-            _check_step(model, opt, cfg, step, parts, before, stats, tag)
+            _check_step(model, opt, cfg, step, parts, before, stats, label)
             for k, v in counts.items():
                 totals[k] = totals.get(k, 0) + v
-        print(f"[train] {recipe}: launches per step as expected {per_step}")
+        print(f"[train] {tag}{recipe}: launches per step as expected "
+              f"{per_step}")
         del model, opt
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    print(f"[train] peak memory allocated {peak:.2f} GiB "
+    print(f"[train] {tag}peak memory allocated {peak:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
     return totals
 
@@ -1482,11 +1556,15 @@ def phase_train_reference(device) -> None:
             f"({REF_STATS_TOL})")
 
 
-def phase_train_full_width(device) -> None:
-    """One default-recipe step at full width on the card (float32) against
-    the same step of the port's CPU path in float64, same weights and
-    batch, dropout off: the loss parts and the gradients. Then the card
-    step once more from the same state: whether it repeats bit for bit."""
+def phase_train_full_width(device, dtype=None) -> None:
+    """One default-recipe step at full width on the card under the policy
+    ``dtype`` (float32 if None; bf16, the 2048-point config's) against the
+    same step of the port's CPU path in float64, same weights and batch,
+    dropout off: the loss parts and the gradients, within the policy's
+    bounds. Then the card step once more from the same state: whether it
+    repeats bit for bit."""
+    import statistics
+
     import torch
 
     from istnet_tpu_torch.entry import build_train_model, make_train_batch
@@ -1495,24 +1573,33 @@ def phase_train_full_width(device) -> None:
         make_optimizer,
         train_step,
     )
+    dtype = dtype or torch.float32
+    name = "float32" if dtype == torch.float32 else "bf16"
+    loss_tol, grad_tol, tensor_tol = (
+        (FULL_LOSS_TOL, FULL_GRAD_TOL, FULL_GRAD_TENSOR_TOL)
+        if dtype == torch.float32 else
+        (BF16_FULL_LOSS_TOL, BF16_FULL_GRAD_TOL, BF16_FULL_GRAD_TENSOR_TOL))
     cfg = TrainConfig()
     batch = make_train_batch(FULL_REF_BATCH, TRAIN_POINTS, TRAIN_IMG, seed=6,
                              device="cpu")
     init = None
     runs = []
     t0 = time.perf_counter()
-    for dev, dtype in (("cpu", torch.float64), (device, torch.float32),
-                       (device, torch.float32)):
+    for dev, run_dtype in (("cpu", torch.float64), (device, dtype),
+                           (device, dtype)):
         model = build_train_model(dev, seed=4, sa_npoints=TRAIN_SA_NPOINTS)
         if init is None:
             init = {k: v.clone() for k, v in model.state_dict().items()}
         else:
             model.load_state_dict(init)
-        model.to(dtype)
+        # the parameters stay float32 under bf16
+        param_dtype = torch.float64 if dev == "cpu" else torch.float32
+        model.to(param_dtype)
         _dropout_off(model)
-        b = {part: {k: (v.to(dtype) if v.is_floating_point() else v).to(dev)
-                    for k, v in d.items()} for part, d in batch.items()}
-        with policy(dtype):
+        b = {part: {k: (v.to(param_dtype) if v.is_floating_point() else v
+                        ).to(dev) for k, v in d.items()}
+             for part, d in batch.items()}
+        with policy(run_dtype):
             parts = train_step(model, make_optimizer(model, cfg), b, 0,
                                torch.Generator(device=dev), cfg)
         runs.append(({k: float(v) for k, v in parts.items()},
@@ -1534,21 +1621,26 @@ def phase_train_full_width(device) -> None:
              for k, g in g_cpu.items()
              if g.abs().max().item() > REF_GRAD_FLOOR * g_top}
     worst = sorted(above.items(), key=lambda kv: -kv[1])[:3]
+    # float32: the worst tensor; bf16: the median tensor (a tensor whose
+    # largest gradient is rounding noise drifts by O(1) under bf16)
+    per_tensor = (worst[0][1] if dtype == torch.float32
+                  else statistics.median(above.values()))
     differ = [k for k in g_gpu if not torch.equal(g_gpu[k], g_again[k])]
     by_module: dict = {}
     for k in differ:
         by_module[k.split(".")[0]] = by_module.get(k.split(".")[0], 0) + 1
     same_loss = l_gpu == l_again
     print(f"[train-reference] full width B={FULL_REF_BATCH} N={TRAIN_POINTS} "
-          f"{TRAIN_IMG}x{TRAIN_IMG}, card float32 vs CPU float64 "
+          f"{TRAIN_IMG}x{TRAIN_IMG}, card {name} vs CPU float64 "
           f"({seconds:.1f} s): loss parts rel err {loss_err:.3g} (bound "
-          f"{FULL_LOSS_TOL:g}); gradients normwise over all {g_all:.3g} "
-          f"(bound {FULL_GRAD_TOL:g}; max|g| {g_top:.3g}); per tensor, "
+          f"{loss_tol:g}); gradients normwise over all {g_all:.3g} "
+          f"(bound {grad_tol:g}; max|g| {g_top:.3g}); per tensor, "
           f"{len(above)} of {len(g_cpu)} above {REF_GRAD_FLOOR:g} of the "
-          f"largest, worst "
+          f"largest, median {statistics.median(above.values()):.3g}, worst "
           + ", ".join(f"{k} {e:.3g}" for k, e in worst)
-          + f" (bound {FULL_GRAD_TENSOR_TOL:g})")
-    print(f"[train-reference] full width, a second card step: loss parts "
+          + f" (bound {tensor_tol:g} on the "
+          + ("worst)" if dtype == torch.float32 else "median)"))
+    print(f"[train-reference] full width {name}, a second card step: loss parts "
           f"{'equal' if same_loss else 'differ'}, {len(differ)} of "
           f"{len(g_gpu)} gradient tensors differ in their bits"
           + (f", by module {by_module} (first: {', '.join(differ[:3])})"
@@ -1556,22 +1648,26 @@ def phase_train_full_width(device) -> None:
     if differ or not same_loss:
         raise AssertionError("full width: a second card step from the same "
                              "state does not repeat the first bit for bit")
-    if (loss_err > FULL_LOSS_TOL or g_all > FULL_GRAD_TOL
-            or worst[0][1] > FULL_GRAD_TENSOR_TOL):
+    if (loss_err > loss_tol or g_all > grad_tol or per_tensor > tensor_tol):
         raise AssertionError(
-            f"full width card vs CPU float64 train step: loss {loss_err} "
-            f"({FULL_LOSS_TOL}), gradients {g_all} ({FULL_GRAD_TOL}), per "
-            f"tensor {worst[0]} ({FULL_GRAD_TENSOR_TOL})")
+            f"full width card {name} vs CPU float64 train step: loss "
+            f"{loss_err} ({loss_tol}), gradients {g_all} ({grad_tol}), per "
+            f"tensor {per_tensor} ({tensor_tol})")
 
 
-def phase_train_timings(device) -> float:
-    """Median ms of ``train_step`` at the training width, then the split of
-    the same step into its parts (``start_step``, then timed by CUDA
-    events: ``step_loss``, the backward, ``finish_step``); returns the bare
-    step's samples/s."""
+def phase_train_timings(device, frozen: bool = False, dtype=None,
+                        points: int = TRAIN_POINTS) -> float:
+    """Median ms of ``train_step`` at the training width (the default
+    recipe, or the frozen one; under the policy ``dtype``, float32 if None;
+    clouds of ``points``), then the split of the same step into its parts
+    (``start_step``, then timed by CUDA events: ``step_loss``, the
+    backward, ``finish_step``), peak memory and the kernels' launches a
+    step; returns the bare step's samples/s."""
     import statistics
 
     import torch
+
+    from istnet_tpu_torch import ops
 
     from istnet_tpu_torch.entry import build_train_model, make_train_batch
     from istnet_tpu_torch.train.train_state import (
@@ -1583,16 +1679,21 @@ def phase_train_timings(device) -> float:
         step_loss,
         train_step,
     )
-    cfg = TrainConfig()
-    model = build_train_model(device, seed=1, sa_npoints=TRAIN_SA_NPOINTS)
+    dtype = dtype or torch.float32
+    cfg = TrainConfig.frozen() if frozen else TrainConfig()
+    model = build_train_model(device, seed=1, sa_npoints=TRAIN_SA_NPOINTS,
+                              freeze_world_enhancer=frozen, dtype=dtype)
     opt = make_optimizer(model, cfg)
     gen = torch.Generator(device=device).manual_seed(1)
-    batch = make_train_batch(TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG, seed=30,
+    batch = make_train_batch(TRAIN_BATCH, points, TRAIN_IMG, seed=30,
                              device=device)
-    for step in range(2):
-        train_step(model, opt, batch, step, gen, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
+    for step in range(2):
+        ops.reset_launch_counts()
+        train_step(model, opt, batch, step, gen, cfg)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    torch.cuda.synchronize()
     step_ms, host_ms = [], []
     for step in range(2, 2 + TIMED_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1621,13 +1722,17 @@ def phase_train_timings(device) -> float:
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     med = statistics.median(step_ms)
     fwd, bwd, upd = (statistics.median(s[i] for s in split) for i in range(3))
-    print(f"[timings] train B={TRAIN_BATCH} f32 step: median {med:.3f} ms "
+    name = "f32" if dtype == torch.float32 else "bf16"
+    print(f"[timings] train B={TRAIN_BATCH} N={points} {name} "
+          f"{'frozen' if frozen else 'default'} step: median {med:.3f} ms "
           f"over {TIMED_STEPS} (min {min(step_ms):.3f}, max "
           f"{max(step_ms):.3f}; {TRAIN_BATCH / med * 1e3:.1f} samples/s); "
           f"split medians: forward + loss {fwd:.3f} ms, backward {bwd:.3f} "
           f"ms, Adam + BN EMA {upd:.3f} ms; peak memory {peak:.2f} GiB; "
           f"host time to enqueue a step (train_step's return, no sync) "
-          f"median {statistics.median(host_ms):.3f} ms")
+          f"median {statistics.median(host_ms):.3f} ms; kernel launches a "
+          f"step {counts}")
+    del model, opt
     return TRAIN_BATCH / med * 1e3
 
 
@@ -2226,6 +2331,51 @@ def sync_sites(fn) -> list[str]:
     return sites
 
 
+def _on(tree, dev):
+    """A nested dict of numpy arrays or tensors as tensors on ``dev``."""
+    import numpy as np
+    import torch
+    return {k: _on(v, dev) if isinstance(v, dict) else
+            (torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+             ).to(dev) for k, v in tree.items()}
+
+
+def preprocess_card_vs_cpu(tag: str, what: str, raw_np: dict, draws: dict,
+                           device, sample_num: int) -> None:
+    """``make_train_preprocess`` on the card against the CPU, same raw
+    batch and draws: ``choose`` equal, points and ``qo`` within
+    PRE_PTS_TOL / PRE_QO_TOL m, rgb within PRE_RGB_TOL of a level."""
+    import torch
+
+    from istnet_tpu_torch.data import device_preprocess as dp
+    from istnet_tpu_torch.data.transforms import IMAGENET_STD
+    preprocess = dp.make_train_preprocess(TRAIN_IMG, sample_num)
+    outs = []
+    t0 = time.perf_counter()
+    for dev in ("cpu", device):
+        out = preprocess(_on(raw_np, dev), _on(draws, dev))
+        outs.append(_on(out, "cpu"))
+    (c, _), (k, _) = ((o["inputs"], o["labels"]) for o in outs)
+    scale = torch.from_numpy(IMAGENET_STD * 255)
+    errs = {"pts": (k["pts"] - c["pts"]).abs().max().item(),
+            "qo": (k["qo"] - c["qo"]).abs().max().item(),
+            "rgb": ((k["rgb"] - c["rgb"]) * scale).abs().max().item()}
+    b = len(raw_np["depth_raw"])
+    if (k["pts"].shape != (b, sample_num, 3)
+            or not torch.equal(k["choose"], c["choose"])
+            or errs["pts"] > PRE_PTS_TOL or errs["qo"] > PRE_QO_TOL
+            or errs["rgb"] > PRE_RGB_TOL):
+        raise AssertionError(f"{tag}: card vs CPU preprocessing, points "
+                             f"{tuple(k['pts'].shape)}, choose equal "
+                             f"{torch.equal(k['choose'], c['choose'])}, {errs}")
+    print(f"[{tag}] {what} (B={b}, {tuple(raw_np['depth_raw'].shape[1:])}, "
+          f"sample_num {sample_num}), card vs CPU preprocessing with the "
+          f"same draws ({time.perf_counter() - t0:.1f} s): choose equal; max "
+          f"abs err points {errs['pts']:.3g} m (bound {PRE_PTS_TOL:g}), qo "
+          f"{errs['qo']:.3g} ({PRE_QO_TOL:g}), rgb {errs['rgb']:.3g} levels "
+          f"({PRE_RGB_TOL:g})")
+
+
 def phase_device_loop(root: str, device, default_loop) -> tuple[dict, dict]:
     """Phase 18: the device input pipeline at full width. ``cli/train.py``
     on a copy of ``config/ist_net_device_pipeline.yaml`` cut to LOOP_EPOCHS
@@ -2236,14 +2386,12 @@ def phase_device_loop(root: str, device, default_loop) -> tuple[dict, dict]:
     preprocessing against the CPU's with the same draws, and its device us,
     launches and host enqueue ms part by part. Returns the loop's launches
     and kernel 11's case at the path's shape."""
-    import numpy as np
     import torch
 
     from istnet_tpu_torch import ops
     from istnet_tpu_torch.data import device_augment as da
     from istnet_tpu_torch.data import device_preprocess as dp
     from istnet_tpu_torch.data import device_transforms as dt
-    from istnet_tpu_torch.data.transforms import IMAGENET_STD
     from istnet_tpu_torch.train.train_state import prepare_batch
     data = ["--data_dir", os.path.join(root, "data")]
     cfg = _config_copy(root, "ist_net_device_pipeline.yaml",
@@ -2273,36 +2421,12 @@ def phase_device_loop(root: str, device, default_loop) -> tuple[dict, dict]:
     pre = dp.draw_preprocess(b, g, TRAIN_POINTS)
     pre["color"] = dt.draw_color_jitter(b, g)
     aug = da.draw_augment(b, g)
-
-    def on(tree, dev):
-        return {k: on(v, dev) if isinstance(v, dict) else
-                (torch.from_numpy(v) if isinstance(v, np.ndarray) else v
-                 ).to(dev) for k, v in tree.items()}
     preprocess = dp.make_train_preprocess(TRAIN_IMG, TRAIN_POINTS)
-    outs = []
-    t0 = time.perf_counter()
-    for dev in ("cpu", device):
-        out = preprocess(on(raw_np, dev), on(pre, dev))
-        outs.append(on(out, "cpu"))
-    (c, _), (k, _) = ((o["inputs"], o["labels"]) for o in outs)
-    scale = torch.from_numpy(IMAGENET_STD * 255)
-    errs = {"pts": (k["pts"] - c["pts"]).abs().max().item(),
-            "qo": (k["qo"] - c["qo"]).abs().max().item(),
-            "rgb": ((k["rgb"] - c["rgb"]) * scale).abs().max().item()}
-    if (not torch.equal(k["choose"], c["choose"])
-            or errs["pts"] > PRE_PTS_TOL or errs["qo"] > PRE_QO_TOL
-            or errs["rgb"] > PRE_RGB_TOL):
-        raise AssertionError(f"device loop: card vs CPU preprocessing, "
-                             f"choose equal {torch.equal(k['choose'], c['choose'])}"
-                             f", {errs}")
-    print(f"[device loop] one raw batch of the trees (B={b}, "
-          f"{tuple(raw_np['depth_raw'].shape[1:])}), card vs CPU "
-          f"preprocessing with the same draws ({time.perf_counter() - t0:.1f} "
-          f"s): choose equal; max abs err points {errs['pts']:.3g} m (bound "
-          f"{PRE_PTS_TOL:g}), qo {errs['qo']:.3g} ({PRE_QO_TOL:g}), rgb "
-          f"{errs['rgb']:.3g} levels ({PRE_RGB_TOL:g})")
+    preprocess_card_vs_cpu("device loop", "one raw batch of the trees",
+                           raw_np, pre, device, TRAIN_POINTS)
 
-    r, d_pre, d_aug = on(raw_np, device), on(pre, device), on(aug, device)
+    r, d_pre, d_aug = (_on(raw_np, device), _on(pre, device),
+                       _on(aug, device))
     from istnet_tpu_torch.cli.train import build_model
     from istnet_tpu_torch.train.solver import device_pipeline
     from istnet_tpu_torch.train.train_state import (
@@ -2362,13 +2486,124 @@ def phase_device_loop(root: str, device, default_loop) -> tuple[dict, dict]:
     return counts, {"depth_fill": [fill_case]}
 
 
+def phase_gather_backward(device) -> None:
+    """The per-point gather's backward under bf16 at the train step's
+    shape (the RGB head's (24, 192, 192, 128) map, 1024 points a sample
+    drawn from 300 pixels, so each is chosen ~3.4 times): the card's sums
+    bit-equal to the CPU's (both add a pixel's rows in the points' order,
+    rounding to bf16 after each add, as JAX's scatter-add does), and a
+    second card run bit-equal."""
+    import numpy as np
+    import torch
+
+    from istnet_tpu_torch.models.ist_net import gather_by_choose
+    rng = np.random.RandomState(19)
+    b, hw, c = TRAIN_BATCH, TRAIN_IMG, 128
+    fmap = torch.from_numpy(rng.randn(b, hw, hw, c).astype("float32")
+                            ).bfloat16()
+    choose = torch.from_numpy(rng.randint(0, 300, (b, TRAIN_POINTS)))
+    cot = torch.from_numpy(rng.randn(b, TRAIN_POINTS, c).astype("float32")
+                           ).bfloat16()
+    grads = []
+    for dev in ("cpu", device, device):
+        f = fmap.detach().to(dev).requires_grad_()
+        gather_by_choose(f, choose.to(dev)).backward(cot.to(dev))
+        grads.append(f.grad.cpu().clone())
+    if not (torch.equal(grads[0], grads[1]) and torch.equal(grads[1],
+                                                            grads[2])):
+        diff = (grads[1].float() - grads[0].float()).abs().max().item()
+        raise AssertionError(f"gather_by_choose bf16 backward: card vs CPU "
+                             f"max abs diff {diff}")
+    print(f"[train-bf16] gather_by_choose backward at ({b}, {hw}, {hw}, "
+          f"{c}) bf16, {TRAIN_POINTS} points a sample from 300 pixels: card "
+          f"bit-equal to the CPU and to a second card run")
+
+
+def phase_eval_2048(model, device, per_forward: dict, atol: float,
+                    tag: str) -> dict:
+    """The full-width eval forward at N = 2048, B = 32 (the 2048-point
+    config's ``test.sample_num``): launches and outputs as at N = 1024,
+    card against CPU at B = 2 within ``atol``, the forward's ms; returns
+    the launches."""
+    import torch
+
+    from istnet_tpu_torch.entry import make_inputs
+    counts = phase_forward(model, device, per_forward, tag, points=2048)
+    phase_reference(model, device, atol, tag, points=2048)
+    inp = make_inputs(BATCH, 2048, seed=1, device=device)
+    with torch.inference_mode():
+        fwd = cuda_ms(lambda: model(inp), iters=10)
+    print(f"[timings] {tag}B={BATCH} N=2048 forward {fwd:.3f} ms "
+          f"({BATCH / fwd * 1e3:.1f} inf/s)")
+    return counts
+
+
+def phase_sampler_2048(device) -> None:
+    """The train-side device sampler at ``sample_num`` 2048 on
+    SAMPLER_FRAMES raw frames (``entry.make_train_raw_batch``): the card's
+    preprocessing against the CPU's with the same draws."""
+    import torch
+
+    from istnet_tpu_torch.data import device_preprocess as dp
+    from istnet_tpu_torch.data import device_transforms as dt
+    from istnet_tpu_torch.entry import make_train_raw_batch
+    raw = {k: v.numpy() for k, v in make_train_raw_batch(
+        SAMPLER_FRAMES, seed=21, device="cpu").items()}
+    g = torch.Generator().manual_seed(21)
+    draws = dp.draw_preprocess(SAMPLER_FRAMES, g, 2048)
+    draws["color"] = dt.draw_color_jitter(SAMPLER_FRAMES, g)
+    preprocess_card_vs_cpu("sampler 2048", "raw frames", raw, draws, device,
+                           2048)
+
+
+def phase_2048_config(root: str, device) -> dict:
+    """``config/ist_net_2048pt_dp.yaml`` through ``cli/train.py`` (the
+    frozen recipe under bf16 at 2048 points, B = 18 + 6, the host data
+    path), its world enhancer from phase 17's PoseNetGT checkpoint, epochs
+    cut to 5 of TWO_PHASE_ITERS; then ``cli/test.py`` on its epoch-5
+    checkpoint at ``test.sample_num`` 2048 under bf16: finite APs. Returns
+    the loop's launches."""
+    import numpy as np
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.cli import test as cli_test
+    from istnet_tpu_torch.nn import precision
+    log_dir = os.path.join(root, "log_2048")
+    cfg = _config_copy(root, "ist_net_2048pt_dp.yaml", max_epoch=5,
+                       num_mini_batch_per_epoch=TWO_PHASE_ITERS,
+                       world_enhancer_weights=os.path.join(root, "log_p1",
+                                                           "ckpt"),
+                       world_enhancer_epoch=5)
+    solver = run_loop("2048 config", ["--config", cfg, "--log_dir", log_dir,
+                                      "--data_dir", os.path.join(root, "data")],
+                      device, FROZEN_PER_STEP, profiled=True)
+    counts = ops.launch_counts()
+    pts = solver.model.pts_cam_extractor
+    if (precision.compute_dtype() != precision.dtype_named("bfloat16")
+            or not solver.model.freeze_world_enhancer):
+        raise AssertionError("2048 config: not the frozen recipe under bf16")
+    iou, pose = cli_test.main(["--config", cfg, "--data_dir", root,
+                               "--log_dir", log_dir, "--test_epoch", "5",
+                               "--device", str(device)])
+    if not (np.isfinite(iou).all() and np.isfinite(pose).all()):
+        raise AssertionError("2048 config: non-finite APs")
+    print(f"[2048 config] frozen recipe under bf16 at 2048 points, SA 1 "
+          f"sampling {pts.SA_modules[0].npoint} of them; cli/test.py from "
+          f"the epoch-5 checkpoint at test.sample_num 2048 under bf16 on the "
+          f"card: finite APs")
+    return counts
+
+
 def phase_training(device, bare: float):
-    """Phases 15-18 in one temporary directory: the synthetic train trees
-    (LOOP_SCENES scenes each) and a test tree, then the loop, the resume,
-    the two-phase recipe and the device loop; returns the loop's,
-    PoseNetGT's and the device loop's launches and kernel 11's case on the
-    device loop's path."""
+    """Phases 15-18 and 22 in one temporary directory: the synthetic train
+    trees (LOOP_SCENES scenes each) and a test tree, then the loop, the
+    resume, the two-phase recipe, the 2048-point config from the
+    two-phase recipe's PoseNetGT checkpoint and the device loop; returns
+    the loop's, PoseNetGT's, the 2048-point config's and the device loop's
+    launches and kernel 11's case on the device loop's path."""
     import tempfile
+
+    import torch
 
     from istnet_tpu_torch.data import synthetic
     with tempfile.TemporaryDirectory() as root:
@@ -2381,9 +2616,12 @@ def phase_training(device, bare: float):
         loop_counts, trained = phase_train_loop(root, device, bare)
         phase_resume(root, device, trained)
         p1_counts = phase_two_phase(root, device)
+        # the config's CLI sets bf16; restored after
+        with policy(torch.float32):
+            counts_2048 = phase_2048_config(root, device)
         device_counts, fill_case = phase_device_loop(root, device, trained)
         del trained
-    return loop_counts, p1_counts, device_counts, fill_case
+    return loop_counts, p1_counts, counts_2048, device_counts, fill_case
 
 
 def main() -> int:
@@ -2408,6 +2646,14 @@ def main() -> int:
                             "max_abs_err": errs[name], "ms": k_ms,
                             "plain_ms": p_ms, "bound_ms": least,
                             "bound_by": bound_by, "library_ms": l_ms})
+
+    def record_split(path, errs, counts, times, cases):
+        # under bf16 the geometry's kernels read float32 points; the
+        # grouping, the interpolation and the scatters carry bf16
+        geometry = [n for n in cases if n in ("fps", "ball_query", "three_nn")]
+        record(path, "float32", errs, counts, times, geometry)
+        record(path, "bfloat16", errs, counts, times,
+               [n for n in cases if n not in geometry])
 
     with policy(torch.float32):
         cases = {name: [(args, True) for args in arg_list]
@@ -2472,10 +2718,61 @@ def main() -> int:
         phase_train_reference(device)
         phase_train_full_width(device)
         bare = phase_train_timings(device)
+        phase_train_timings(device, frozen=True)
     record("train", "float32", errs_t, counts_t, times_t, list(train_cases))
 
-    loop_counts, posenet_counts, device_counts, fill_case = phase_training(
-        device, bare)
+    # phase 19: the bf16 train policy at N = 1024
+    with policy(torch.bfloat16):
+        cases_tb = train_kernel_cases(device, bf16=True)
+        errs_tb = phase_kernels(cases_tb, bf16=True, tag="train ")
+        phase_gather_backward(device)
+        times_tb = time_kernels(cases_tb, "train bf16 ")
+        counts_tb = phase_train_steps(device, torch.bfloat16, tag="bf16 ")
+        phase_train_full_width(device, torch.bfloat16)
+        phase_train_timings(device, dtype=torch.bfloat16)
+        phase_train_timings(device, frozen=True, dtype=torch.bfloat16)
+    record_split("train bf16", errs_tb, counts_tb, times_tb, cases_tb)
+
+    # phases 20-21: N = 2048, the eval forward under both policies, then
+    # the frozen bf16 step and the train sampler
+    with policy(torch.float32):
+        cases_e2 = kernel_cases(device, points=2048)
+        cases_e2 = {name: [(args, True) for args in arg_list]
+                    for name, arg_list in cases_e2.items()}
+        errs_e2 = phase_kernels(cases_e2, tag="eval 2048 ")
+        counts_e2 = phase_eval_2048(model, device, F32_PER_FORWARD, CPU_ATOL,
+                                    "2048 ")
+        times_e2 = time_kernels(cases_e2, "eval 2048 ")
+    record("eval 2048", "float32", errs_e2, counts_e2, times_e2,
+           list(cases_e2))
+    with policy(torch.bfloat16):
+        cases_e2b = {name: case_list[:len(case_list) - (name == "sa_fused")]
+                     for name, case_list
+                     in kernel_cases_bf16(device, points=2048).items()}
+        errs_e2b = phase_kernels(cases_e2b, bf16=True, tag="eval 2048 ")
+        counts_e2b = phase_eval_2048(model16, device, BF16_PER_FORWARD,
+                                     BF16_CPU_ATOL, "bf16 2048 ")
+        times_e2b = time_kernels(cases_e2b, "eval 2048 bf16 ")
+    # FPS at SA 1 (2048 -> 512) is the float32 path's case
+    errs_e2b["fps"], times_e2b["fps"] = errs_e2["fps"], times_e2["fps"]
+    record("eval 2048 bf16", "float32", errs_e2b, counts_e2b, times_e2b,
+           ["fps"])
+    record("eval 2048 bf16", "bfloat16", errs_e2b, counts_e2b, times_e2b,
+           list(cases_e2b))
+    with policy(torch.bfloat16):
+        cases_t2 = train_kernel_cases(device, points=2048, bf16=True,
+                                      frozen=True)
+        errs_t2 = phase_kernels(cases_t2, bf16=True, tag="train 2048 ")
+        times_t2 = time_kernels(cases_t2, "train bf16 2048 ")
+        phase_train_steps(device, torch.bfloat16, points=2048,
+                          recipes=("frozen",), tag="bf16 2048 ")
+        phase_train_timings(device, frozen=True, dtype=torch.bfloat16,
+                            points=2048)
+        phase_sampler_2048(device)
+
+    (loop_counts, posenet_counts, counts_2048, device_counts,
+     fill_case) = phase_training(device, bare)
+    record_split("train bf16 2048", errs_t2, counts_2048, times_t2, cases_t2)
     record("train loop", "float32", errs_t, loop_counts, times_t,
            list(train_cases))
     record("posenet_gt", "float32", errs_t, posenet_counts, times_t,

@@ -96,9 +96,8 @@ def main(argv=None):
         if device.type == "cuda" and not torch.cuda.is_available():
             raise SystemExit("no CUDA card: pass --device cpu to run the "
                              "plain versions on the CPU")
-        dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
-            cfg.get("compute_dtype", "float32")]
-        precision.set_compute_dtype(dtype)
+        precision.set_compute_dtype(precision.dtype_named(
+            cfg.get("compute_dtype", "float32")))
 
         model = ISTNet(
             nclass=cfg.num_category,

@@ -7,7 +7,9 @@
 Wires config -> model (``model_arch``: ``ist_net`` or ``posenet_gt``) ->
 the CAMERA and Real datasets (seeds ``rd_seed`` and ``rd_seed + 1``; raw
 frames under ``use_device_preprocess``) -> their loaders -> ``Solver``, on
-the card unless ``--device cpu`` is given.
+the card unless ``--device cpu`` is given, under the config's
+``compute_dtype`` (float32, or bfloat16 as ``config/ist_net_2048pt_dp.yaml``
+trains).
 The two-phase recipe's second phase (``freeze_world_enhancer`` with
 ``world_enhancer_weights``) first moves PoseNetGT's world extractor in;
 ``--checkpoint_epoch`` resumes from ``log_dir/ckpt/<epoch>``: model,
@@ -27,8 +29,6 @@ _NOT_YET = {
     "pretrained_backbone": "--pretrained_backbone (ImageNet weights for the "
                            "RGB trunk) is not ported yet: ROADMAP.md queue "
                            "1, item 9",
-    "bfloat16": "compute_dtype: bfloat16 in training is not ported yet: "
-                "ROADMAP.md queue 1, item 6",
 }
 
 
@@ -89,8 +89,6 @@ def main(argv=None):
     from istnet_tpu_torch.utils import Config, get_logger
 
     cfg = Config.fromfile(args.config)
-    if cfg.get("compute_dtype", "float32") == "bfloat16":
-        raise SystemExit(_NOT_YET["bfloat16"])
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --device cpu to train with the "
@@ -102,7 +100,10 @@ def main(argv=None):
         log_dir, f"train_{int(time.time())}.log"))
     logger.info(f"config: {args.config} -> {log_dir} on {device}")
 
-    precision.set_compute_dtype(torch.float32)
+    # the config's policy (istnet_tpu/cli/train.py:111-113); the parameters
+    # and Adam's state stay float32 under both
+    precision.set_compute_dtype(precision.dtype_named(
+        cfg.get("compute_dtype", "float32")))
     train_cfg = TrainConfig.from_config(cfg)
     model = build_model(cfg, train_cfg)
     n_params = sum(p.numel() for p in model.parameters())

@@ -152,11 +152,14 @@ def build_model(device: str | torch.device = "cuda", seed: int = 0,
 
 def build_train_model(device: str | torch.device = "cuda", seed: int = 0,
                       freeze_world_enhancer: bool = False,
-                      sa_npoints=SA_NPOINTS) -> ISTNet:
-    """``build_model`` in train mode, under the float32 policy (the train
-    step's; ``config/ist_net_default.yaml: compute_dtype: float32``)."""
+                      sa_npoints=SA_NPOINTS,
+                      dtype: torch.dtype = torch.float32) -> ISTNet:
+    """``build_model`` in train mode, under the compute policy ``dtype``
+    (float32 as ``config/ist_net_default.yaml`` trains, or bf16 as
+    ``config/ist_net_2048pt_dp.yaml``; the parameters are float32 under
+    both). The policy is global, as in ``build_serving_model``."""
     device = on_device(device, "build_train_model")
-    precision.set_compute_dtype(torch.float32)
+    precision.set_compute_dtype(dtype)
     return build_model(device, seed, sa_npoints,
                        freeze_world_enhancer=freeze_world_enhancer).train()
 

@@ -48,7 +48,14 @@ def gather_by_choose(feat_map: torch.Tensor, choose: torch.Tensor
     """(B, H, W, C), (B, N) -> (B, N, C) per-point pixel features. An
     indexed read, whose backward (``index_put_`` with accumulation) sums
     the rows of a repeated pixel in a fixed order on the card; the
-    backward of ``torch.gather`` adds them by atomics in no fixed order."""
+    backward of ``torch.gather`` adds them by atomics in no fixed order.
+
+    The backward accumulates in the map's dtype, in the points' order:
+    under bf16 each added row rounds to bf16, as JAX's AD scatter-add of a
+    row take does (``istnet_tpu/models/ist_net.py:100-111``, bit-equal on
+    the CPU). On the card ``index_put_`` sorts the indices stably and adds
+    a pixel's rows one after another (in float32, rounded back to the
+    map's dtype after each add), so it stays deterministic."""
     b, h, w, c = feat_map.shape
     rows = torch.arange(b, device=feat_map.device)[:, None]
     return feat_map.reshape(b, h * w, c)[rows, choose.long()]

@@ -217,10 +217,13 @@ def _half_pixel_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 class _UpsampleBilinear(torch.autograd.Function):
     """``F.interpolate(bilinear, align_corners=False)`` of an NCHW map, its
-    backward two contractions with the transposed interpolation matrices.
-    PyTorch's own backward adds each output's share into its input pixels
-    by atomics on the card, in no fixed order, so two steps from one state
-    differed in their bits; the contractions sum in a fixed order."""
+    backward two contractions with the transposed interpolation matrices,
+    rows first. PyTorch's own backward adds each output's share into its
+    input pixels by atomics on the card, in no fixed order, so two steps
+    from one state differed in their bits; the contractions sum in a fixed
+    order. Under bf16 each contraction accumulates in float32 and rounds
+    once to bf16, as the forward does (the policy keeps cuBLAS's bf16
+    reductions in float32, ``nn/precision.py::apply_policy``)."""
 
     @staticmethod
     def forward(ctx, x, out_h: int, out_w: int):
@@ -233,7 +236,8 @@ class _UpsampleBilinear(torch.autograd.Function):
         (h, w), (out_h, out_w) = ctx.in_hw, g.shape[-2:]
         ah = _matrix_on(_half_pixel_matrix, h, out_h, g)
         aw = _matrix_on(_half_pixel_matrix, w, out_w, g)
-        return torch.einsum("ih,ncij,jw->nchw", ah, g, aw), None, None
+        rows = torch.einsum("ih,ncij->nchj", ah, g)
+        return torch.einsum("nchj,jw->nchw", rows, aw), None, None
 
 
 def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:

@@ -4,11 +4,14 @@ Two policies, as in the JAX package:
 
 - float32 (the default; ``config/ist_net_default.yaml: compute_dtype:
   float32``);
-- bfloat16, the deployment precision ``bench.py`` sets: convs and dense
-  layers run in bf16 with float32 parameters cast on each call; BatchNorm
-  arithmetic, the geometry (FPS, ball query, 3-NN distances) and the pose
-  and NOCS head outputs stay float32. Only this policy's eval forward takes
-  the fused SA kernel (``nn/pointnet2_msg.py``).
+- bfloat16, the deployment precision ``bench.py`` sets and the training
+  precision of ``config/ist_net_2048pt_dp.yaml``: convs and dense layers
+  run in bf16 with float32 parameters cast on each call (so gradients land
+  in float32 on the float32 parameters, and Adam's state stays float32);
+  BatchNorm arithmetic and its published batch statistics, the geometry
+  (FPS, ball query, 3-NN distances), the pose and NOCS head outputs and
+  the losses stay float32. Only this policy's eval forward takes the fused
+  SA kernel (``nn/pointnet2_msg.py``).
 
 float64 is accepted too, for the parity tests on the CPU only, as the JAX
 package's tests run its float64 policy under x64: the model is then
@@ -36,6 +39,8 @@ import torch
 
 _COMPUTE_DTYPE = torch.float32
 _POLICIES = (torch.float32, torch.bfloat16, torch.float64)
+# the values of a config's ``compute_dtype`` (float64 is the tests' alone)
+_NAMED = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def set_compute_dtype(dtype: torch.dtype) -> None:
@@ -48,6 +53,14 @@ def set_compute_dtype(dtype: torch.dtype) -> None:
 
 def compute_dtype() -> torch.dtype:
     return _COMPUTE_DTYPE
+
+
+def dtype_named(name: str) -> torch.dtype:
+    """The policy a config's ``compute_dtype`` names: ``float32`` or
+    ``bfloat16``."""
+    if name not in _NAMED:
+        raise ValueError(f"compute_dtype {name!r}: float32 or bfloat16")
+    return _NAMED[name]
 
 
 def apply_policy() -> None:

@@ -15,6 +15,12 @@ them with it is refused. Each epoch resamples the datasets and holds the
 reference's contract of exactly ``num_mini_batch_per_epoch`` iterations;
 every 5th epoch writes a checkpoint.
 
+The steps run under the config's ``compute_dtype`` (float32 or bfloat16),
+which the Solver sets as ``cli/train.py`` does; the float64 policy of the
+CPU parity tests, which no config names, is kept. The inputs stay in the
+parameters' float32 under bf16, as JAX's Solver leaves them: each layer
+casts on its own, and the geometry reads float32 points.
+
 The host never waits on the card inside an epoch but for the metrics: the
 loss parts stay device tensors and are read (``.item()``) ``pipeline_depth``
 steps late, the LR comes from ``TrainConfig.lr(step)`` on the host, and
@@ -37,6 +43,7 @@ import torch
 
 from istnet_tpu_torch.data.device_augment import make_device_augment
 from istnet_tpu_torch.data.device_preprocess import make_train_preprocess
+from istnet_tpu_torch.nn import precision
 from istnet_tpu_torch.train import checkpoints
 from istnet_tpu_torch.train.train_state import TrainConfig, train_step
 from istnet_tpu_torch.utils.logging import LogBuffer, MetricWriter
@@ -119,7 +126,7 @@ class Solver:
     """Trains ``model`` (in train mode, on its device) with ``optimizer``
     built by ``make_optimizer`` for ``train_cfg``. ``config`` is the YAML
     config (``max_epoch``, ``per_write``, ``pipeline_depth``, ``rd_seed``,
-    ``train_dataset``, ``parallel``); ``step`` is the step count to start
+    ``train_dataset``, ``parallel``, ``compute_dtype``); ``step`` is the step count to start
     from (a resumed run's), ``start_epoch`` the first epoch to run."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -146,6 +153,9 @@ class Solver:
         self.start_epoch = start_epoch
         self.step = int(step)
         self.records: list[dict] = []
+        if precision.compute_dtype() != torch.float64:
+            precision.set_compute_dtype(precision.dtype_named(
+                config.get("compute_dtype", "float32")))
         param = next(model.parameters())
         self.device, self.dtype = param.device, param.dtype
         self.preprocess_fn, self.augment_fn = device_pipeline(config,

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from istnet_tpu_torch.nn import precision
 from istnet_tpu_torch.train import checkpoints
 from istnet_tpu_torch.train.train_state import TrainConfig, make_optimizer
 from istnet_tpu_torch.utils import Config
@@ -40,7 +41,8 @@ def test_cli_train_resume_and_test_from_its_checkpoint(root, tmp_path,
     restores it (model and optimizer bit-equal to the saved state) and runs
     epoch 6 from step 10 at ``TrainConfig.lr(10)``; ``cli/test.py`` then
     restores epoch 5 without ``--torch_checkpoint`` and gives finite APs.
-    What is not ported exits with its ROADMAP item."""
+    What is not ported exits with its ROADMAP item; a ``compute_dtype:
+    bfloat16`` config trains under the bf16 policy."""
     from istnet_tpu_torch.cli import test as cli_test
     from istnet_tpu_torch.cli import train as cli_train
 
@@ -81,9 +83,19 @@ def test_cli_train_resume_and_test_from_its_checkpoint(root, tmp_path,
                        (["--pretrained_backbone", "r.npz"], "item 9")):
         with pytest.raises(SystemExit, match=item):
             cli_train.main(["--config", cfg5] + data + argv)
-    bf16 = _write_cfg(tmp_path / "bf16.yaml", 5, 2, compute_dtype="bfloat16")
-    with pytest.raises(SystemExit, match="item 6"):
-        cli_train.main(["--config", bf16] + data)
+    # a bf16 config trains under the bf16 policy, its parameters float32
+    bf16 = _write_cfg(tmp_path / "bf16.yaml", 1, 2, compute_dtype="bfloat16")
+    try:
+        trained = cli_train.main(["--config", bf16, "--data_dir",
+                                  str(root / "data"), "--log_dir",
+                                  str(tmp_path / "log_bf16"), "--device",
+                                  "cpu"])
+        assert precision.compute_dtype() == torch.bfloat16
+    finally:
+        precision.set_compute_dtype(torch.float32)
+    assert [r["step"] for r in trained.records] == [0, 1]
+    assert all(np.isfinite(r["total"]) for r in trained.records)
+    assert all(p.dtype == torch.float32 for p in trained.model.parameters())
 
 
 def test_two_phase_smoke_prints_ok(tmp_path, capsys, quiet_logger):
