@@ -149,6 +149,29 @@ directory:
    the numbers of 15 and its busy share; ``cli/test.py`` on its epoch-5
    checkpoint at ``test.sample_num`` 2048 under bf16: finite APs.
 
+then data parallelism on the one card (``istnet_tpu_torch/parallel``):
+
+23. FPS past 2048 points: kernel 1 against its plain version at N = 2049,
+   4096, 8192 (16 warps of registers) and 20000 (the stream kernel), B = 8,
+   indices equal; kernel, plain and device time a call;
+24. DDP world 1: ``multihost.initialize`` under torchrun's variables on a
+   free port (NCCL), 3 default and 3 frozen steps at B = 24 through
+   ``wrap_dp`` bit-equal to the plain card step from the same state (every
+   loss part and state tensor), launches as the plain step's; the default
+   step's median ms, DDP and plain in turns, and peak memory;
+25. two ranks on one card: two spawned processes under gloo, both on
+   ``cuda:0``, each with 12 rows of a B = 24 batch (global-batch
+   BatchNorm), one full-width step against one process's B = 24 card step
+   from the same state, dropout off: loss parts and gradients within phase
+   9's full-width bounds, both ranks' updated state bit-equal;
+26. (run after 18) ``cli/train.py`` under torchrun (world 1, NCCL) over
+   phase 15's trees, 5 epochs of one step and the epoch-5 checkpoint (the
+   reference keys), launches counted in the torchrun process; then
+   ``cli/test.py --devices 1`` on it: finite APs;
+27. eval DP: ``eval_forward_dp`` over ``[cuda:0, cuda:0]`` against the
+   unsplit B = 32 f32 forward within 2e-4, launches twice a forward's, and
+   the eval kernels at the replicas' B = 16 against their plain versions.
+
 Before the last line come the card's name and power limit (first line) and a
 JSON object of per-kernel results with each kernel's bound; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2594,13 +2617,405 @@ def phase_2048_config(root: str, device) -> dict:
     return counts
 
 
+# data parallelism on one card (phases 23-27)
+FPS_LARGE = ((2049, 512), (4096, 512), (8192, 512), (20000, 512))
+FPS_LARGE_BATCH = 8
+DP_STEPS = 3               # DDP world-1 steps a recipe, bit-equal to plain
+DP_RANK_BATCH = TRAIN_BATCH // 2
+DP_CLI_EPOCHS = 5          # one step an epoch: the epoch-5 checkpoint
+
+
+@contextlib.contextmanager
+def _launch_env(**env):
+    """torchrun's variables set for the block, then restored."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_fps_large(device) -> None:
+    """Phase 23: kernel 1 past 2048 points (no shipped config reaches it)
+    against its plain version, indices equal, at FPS_LARGE (16 warps of
+    registers to 8192 points, then the stream kernel), each case's kernel
+    and plain ms, bound and device us a call."""
+    import numpy as np
+    rng = np.random.RandomState(23)
+    cases = {"fps": [((_points(rng, FPS_LARGE_BATCH, n).to(device), npoint),
+                      True) for n, npoint in FPS_LARGE]}
+    phase_kernels(cases, tag="fps past 2048 ")
+    for case in cases["fps"]:
+        time_kernels({"fps": [case]}, "fps past 2048 ")
+
+
+def _state_equal(a: dict, b: dict) -> list:
+    """Keys whose tensors differ in any bit."""
+    import torch
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def phase_ddp_world1(device) -> dict:
+    """Phase 24: ``multihost.initialize`` under torchrun's variables (world
+    1, a free port): NCCL. DP_STEPS steps of the default and the frozen
+    recipe at B=24 through ``wrap_dp`` against the plain card step from the
+    same state, batches and generator: every loss part and every tensor of
+    the state bit-equal, launches as the plain step's; then the default
+    step's median ms by CUDA events, DDP and plain in turns, and peak
+    memory. Returns the DDP steps' launches."""
+    import statistics
+
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.entry import build_train_model, make_train_batch
+    from istnet_tpu_torch.parallel import multihost, wrap_dp
+    from istnet_tpu_torch.train.train_state import (TrainConfig,
+                                                    make_optimizer, train_step)
+    totals: dict = {}
+    with _launch_env(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0,
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=_free_port()):
+        got = multihost.initialize(device.type)
+        backend = torch.distributed.get_backend()
+        if backend != ("nccl" if device.type == "cuda" else "gloo") or (
+                got != device):
+            raise AssertionError(f"world 1: {backend} on {got}")
+        try:
+            for cfg, per_step in ((TrainConfig(), TRAIN_PER_STEP),
+                                  (TrainConfig.frozen(), FROZEN_PER_STEP)):
+                recipe = "frozen" if cfg.freeze_world_enhancer else "default"
+                runs = []
+                for wrap in (False, True):
+                    model = build_train_model(
+                        device, seed=0, sa_npoints=TRAIN_SA_NPOINTS,
+                        freeze_world_enhancer=cfg.freeze_world_enhancer)
+                    opt = make_optimizer(model, cfg)
+                    step_model = wrap_dp(model) if wrap else model
+                    gen = torch.Generator(device=device).manual_seed(0)
+                    torch.cuda.synchronize()
+                    ops.reset_launch_counts()
+                    parts = [train_step(step_model, opt, make_train_batch(
+                        TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG, seed=10 + k,
+                        device=device), k, gen, cfg) for k in range(DP_STEPS)]
+                    torch.cuda.synchronize()
+                    counts = ops.launch_counts()
+                    want = {k: v * DP_STEPS for k, v in per_step.items()}
+                    if counts != want:
+                        raise AssertionError(f"ddp world 1 {recipe}: "
+                                             f"launches {counts}, expected "
+                                             f"{want}")
+                    if wrap:
+                        for k, v in counts.items():
+                            totals[k] = totals.get(k, 0) + v
+                    runs.append((parts, model.state_dict()))
+                    del model, opt, step_model
+                (p0, s0), (p1, s1) = runs
+                bad_parts = [(i, k) for i in range(DP_STEPS) for k in p0[i]
+                             if not torch.equal(p0[i][k], p1[i][k])]
+                bad = _state_equal(s0, s1)
+                print(f"[ddp world 1] {recipe}: {DP_STEPS} steps at B="
+                      f"{TRAIN_BATCH} over {backend} on {got}: "
+                      f"{len(bad_parts)} loss parts and {len(bad)} of "
+                      f"{len(s0)} state tensors differ from the plain step's "
+                      f"in any bit; launches as the plain step's")
+                if bad or bad_parts:
+                    raise AssertionError(f"ddp world 1 {recipe}: not "
+                                         f"bit-equal: {bad_parts[:3]} "
+                                         f"{bad[:3]}")
+                del runs, s0, s1
+            # timings, the default recipe, plain and DDP in turns
+            cfg = TrainConfig()
+            batch = make_train_batch(TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG,
+                                     seed=30, device=device)
+            ms: dict = {"plain": [], "ddp": []}
+            peak: dict = {}
+            for turn in ("plain", "ddp", "ddp", "plain"):
+                model = build_train_model(device, seed=1,
+                                          sa_npoints=TRAIN_SA_NPOINTS)
+                opt = make_optimizer(model, cfg)
+                step_model = wrap_dp(model) if turn == "ddp" else model
+                gen = torch.Generator(device=device).manual_seed(1)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                for step in range(2 + TIMED_STEPS // 2):
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    with no_gc():
+                        ev[0].record()
+                        train_step(step_model, opt, batch, step, gen, cfg)
+                        ev[1].record()
+                        torch.cuda.synchronize()
+                    if step >= 2:
+                        ms[turn].append(ev[0].elapsed_time(ev[1]))
+                peak[turn] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+                del model, opt, step_model
+            med = {k: statistics.median(v) for k, v in ms.items()}
+            print(f"[timings] ddp world 1, default step B={TRAIN_BATCH} "
+                  f"f32, in turns plain/ddp/ddp/plain, {TIMED_STEPS} steps "
+                  f"each: median ddp {med['ddp']:.3f} ms (min "
+                  f"{min(ms['ddp']):.3f}, max {max(ms['ddp']):.3f}), plain "
+                  f"{med['plain']:.3f} ms (min {min(ms['plain']):.3f}, max "
+                  f"{max(ms['plain']):.3f}): "
+                  f"{med['ddp'] / med['plain'] - 1:+.1%}"
+                  f"; peak memory ddp {peak['ddp']:.2f} GiB, plain "
+                  f"{peak['plain']:.2f} GiB")
+        finally:
+            multihost.shutdown()
+    return totals
+
+
+def _gloo_rank(rank: int, world: int, store, out: str, kind: str) -> dict:
+    """A rank of phase 25 (a spawned process): gloo, on ``cuda:0`` as the
+    other rank; its DP_RANK_BATCH rows of the B=24 batch, one default step,
+    dropout off. Rank 0 saves its gradients to ``out``; each returns its
+    loss parts (averaged over the ranks), launches, the digest of its
+    updated state and its step's seconds. ``kind``: the device type."""
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.cli.train import state_digest
+    from istnet_tpu_torch.entry import build_train_model, make_train_batch
+    from istnet_tpu_torch.parallel import mesh, multihost
+    from istnet_tpu_torch.parallel.collectives import all_reduce_mean
+    from istnet_tpu_torch.train.train_state import (TrainConfig,
+                                                    make_optimizer, train_step)
+    device = multihost.initialize(kind, backend="gloo", store=store,
+                                  rank=rank, world_size=world, local_rank=0)
+    try:
+        model = build_train_model(device, seed=4, sa_npoints=TRAIN_SA_NPOINTS)
+        _dropout_off(model)
+        cfg = TrainConfig()
+        opt = make_optimizer(model, cfg)
+        batch = mesh.shard_batch(make_train_batch(
+            TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG, seed=6, device=device),
+            rank, world)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = train_step(mesh.wrap_dp(model), opt, batch, 0,
+                           torch.Generator(device=device), cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        parts = {k: float(all_reduce_mean(v)) for k, v in parts.items()}
+        if rank == 0:
+            torch.save({n: p.grad.detach().cpu() for n, p in
+                        model.named_parameters() if p.grad is not None}, out)
+        return {"parts": parts, "counts": counts, "seconds": seconds,
+                "digest": state_digest(model)}
+    finally:
+        multihost.shutdown()
+
+
+def phase_two_ranks_one_card(device) -> None:
+    """Phase 25: the global-batch BatchNorm across 2 ranks that share the
+    card (two spawned processes, gloo: NCCL refuses two ranks on one card),
+    each with DP_RANK_BATCH rows of a B=24 batch, one full-width f32 step
+    against one process's B=24 card step from the same state and batch,
+    dropout off: loss parts relative and gradients normwise within phase
+    9's full-width bounds (FULL_LOSS_TOL, FULL_GRAD_TOL); both ranks'
+    updated parameters and BN running statistics bit-equal (one digest);
+    each rank's launches those of a step."""
+    import tempfile
+
+    import torch
+
+    from istnet_tpu_torch.entry import build_train_model, make_train_batch
+    from istnet_tpu_torch.parallel import multihost
+    from istnet_tpu_torch.train.train_state import (TrainConfig,
+                                                    make_optimizer, train_step)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "grads.pt")
+        t0 = time.perf_counter()
+        ranks = multihost.spawn(_gloo_rank, 2, out, device.type, timeout=600)
+        spawn_s = time.perf_counter() - t0
+        g_dp = torch.load(out)
+    model = build_train_model(device, seed=4, sa_npoints=TRAIN_SA_NPOINTS)
+    _dropout_off(model)
+    cfg = TrainConfig()
+    parts = train_step(model, make_optimizer(model, cfg), make_train_batch(
+        TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG, seed=6, device=device), 0,
+        torch.Generator(device=device), cfg)
+    want = {k: float(v) for k, v in parts.items()}
+    g_one = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    del model
+    for r, res in enumerate(ranks):
+        if res["counts"] != TRAIN_PER_STEP:
+            raise AssertionError(f"gloo rank {r}: launches {res['counts']}")
+    if set(g_dp) != set(g_one):
+        raise AssertionError("2 ranks: other parameters have a gradient")
+    loss_err = max(abs(ranks[0]["parts"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in want.items())
+    g_top = max(g.abs().max().item() for g in g_one.values())
+    g_err = max((g_dp[k] - g).abs().max().item()
+                for k, g in g_one.items()) / g_top
+    same = (len({r["digest"] for r in ranks}) == 1
+            and ranks[0]["parts"] == ranks[1]["parts"])
+    print(f"[two ranks, one card] gloo, 2 x B={DP_RANK_BATCH} against one "
+          f"process's B={TRAIN_BATCH} card step: loss parts rel err "
+          f"{loss_err:.3g} (bound {FULL_LOSS_TOL:g}); gradients normwise "
+          f"{g_err:.3g} (bound {FULL_GRAD_TOL:g}; max|g| {g_top:.3g}); the "
+          f"ranks' updated parameters, BN running statistics and loss parts "
+          f"{'bit-equal' if same else 'DIFFER'}; launches a rank "
+          f"{TRAIN_PER_STEP}; a rank's step {ranks[0]['seconds']:.2f} / "
+          f"{ranks[1]['seconds']:.2f} s under gloo (host round trips, not "
+          f"what NCCL would give), the phase {spawn_s:.1f} s with the "
+          f"processes' start")
+    if not same or loss_err > FULL_LOSS_TOL or g_err > FULL_GRAD_TOL:
+        raise AssertionError("two ranks on one card: out of bounds")
+
+
+def torchrun_train_child(out: str, argv: list) -> None:
+    """``chip_smoke.py --torchrun-train OUT ARGS``: a process torchrun
+    started runs ``cli/train.py`` on ARGS, launch counts set to 0 just
+    before, and writes its records, launches and whether the Solver ran
+    DDP to OUT (JSON)."""
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.cli import train as cli_train
+    from istnet_tpu_torch.parallel import multihost
+    # joined here (cli/train.py joins the group it finds), so that the
+    # backend can be read
+    multihost.initialize(cli_train.parse_args(argv).device)
+    try:
+        backend = torch.distributed.get_backend()
+        ops.reset_launch_counts()
+        solver = cli_train.main(argv)
+        counts = ops.launch_counts()
+    finally:
+        multihost.shutdown()
+    with open(out, "w") as f:
+        json.dump({"records": solver.records, "counts": counts,
+                   "ddp": type(solver.model).__name__, "backend": backend,
+                   "world": int(os.environ["WORLD_SIZE"])}, f)
+
+
+def phase_torchrun_cli(root: str, device) -> dict:
+    """Phase 26: ``cli/train.py`` under torchrun (``python -m
+    torch.distributed.run --standalone --nproc_per_node 1``: world 1,
+    NCCL, DDP) on a copy of ``config/ist_net_default.yaml`` cut to
+    DP_CLI_EPOCHS epochs of one step, over phase 15's trees: every loss
+    finite, TRAIN_PER_STEP launches a step, the epoch-5 checkpoint with the
+    reference keys; then ``cli/test.py --devices 1`` from it on the card
+    (batched DP inference): finite APs. Returns the loop's launches."""
+    import numpy as np
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.cli import test as cli_test
+    from istnet_tpu_torch.models.ist_net import ISTNet
+    from istnet_tpu_torch.train import checkpoints
+    cfg = _config_copy(root, "ist_net_default.yaml", max_epoch=DP_CLI_EPOCHS,
+                       num_mini_batch_per_epoch=1)
+    log_dir = os.path.join(root, "log_torchrun")
+    out = os.path.join(root, "torchrun.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.join(REPO, "chip_smoke.py"),
+           "--torchrun-train", out, "--config", cfg, "--data_dir",
+           os.path.join(root, "data"), "--log_dir", log_dir, "--device",
+           str(device)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=REPO)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun cli/train.py failed "
+                             f"({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    with open(out) as f:
+        child = json.load(f)
+    steps = len(child["records"])
+    want = {k: v * steps for k, v in TRAIN_PER_STEP.items()}
+    bad = [r["step"] for r in child["records"]
+           if not np.isfinite(r["total"])]
+    if (child["counts"] != want or bad or steps != DP_CLI_EPOCHS
+            or child["ddp"] != "DistributedDataParallel"
+            or child["world"] != 1 or child["backend"] != (
+                "nccl" if device.type == "cuda" else "gloo")):
+        raise AssertionError(f"torchrun cli/train.py: {child['counts']} "
+                             f"(want {want}), {steps} steps, non-finite "
+                             f"{bad}, model {child['ddp']}")
+    saved = checkpoints.restore_for_eval(os.path.join(log_dir, "ckpt"),
+                                         DP_CLI_EPOCHS)["model"]
+    if list(saved) != list(ISTNet().state_dict()):
+        raise AssertionError("torchrun checkpoint: not the reference keys")
+    ops.reset_launch_counts()
+    iou, pose = cli_test.main(["--config", cfg, "--data_dir", root,
+                               "--log_dir", log_dir, "--test_epoch",
+                               str(DP_CLI_EPOCHS), "--devices", "1",
+                               "--device", str(device)])
+    test_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    if not (np.isfinite(iou).all() and np.isfinite(pose).all()):
+        raise AssertionError("cli/test.py --devices 1: non-finite APs")
+    print(f"[torchrun] cli/train.py under torchrun (world 1, "
+          f"{child['backend']}, {child['ddp']}): {steps} steps of B="
+          f"{TRAIN_BATCH}, losses "
+          f"finite (last {child['records'][-1]['total']:.4f}), launches "
+          f"{TRAIN_PER_STEP} a step, the epoch-{DP_CLI_EPOCHS} checkpoint "
+          f"with the {len(saved)} reference keys ({seconds:.1f} s with "
+          f"torchrun's start); cli/test.py --devices 1 on it: finite APs, "
+          f"launches {test_counts}")
+    return child["counts"]
+
+
+def phase_eval_dp(model, device) -> dict:
+    """Phase 27: ``eval_forward_dp`` over two replicas on the card
+    (``[cuda:0, cuda:0]``) against the unsplit B=32 f32 forward: every
+    output within CPU_ATOL; launches twice a forward's (each replica runs
+    B=16); ms of both by CUDA events. Returns the DP forward's launches."""
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.entry import make_inputs
+    from istnet_tpu_torch.parallel import eval_forward_dp
+    inputs = make_inputs(BATCH, seed=27, device=device)
+    forward = eval_forward_dp(model, [device, device])
+    with torch.inference_mode():
+        want = model(inputs)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = forward(inputs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    expect = {k: 2 * v for k, v in F32_PER_FORWARD.items()}
+    if {k: v for k, v in counts.items() if v} != {
+            k: v for k, v in expect.items() if v}:
+        raise AssertionError(f"eval dp: launches {counts}, expected {expect}")
+    err = max((got[k] - w).abs().max().item() for k, w in want.items())
+    if set(got) != set(want) or not err <= CPU_ATOL:
+        raise AssertionError(f"eval dp: max abs err {err} (bound {CPU_ATOL})")
+    with torch.inference_mode():
+        dp_ms = cuda_ms(lambda: forward(inputs), iters=5)
+        one_ms = cuda_ms(lambda: model(inputs), iters=5)
+    print(f"[eval dp] eval_forward_dp over [{device}, {device}] (2 x B="
+          f"{BATCH // 2}) against the unsplit B={BATCH} forward: max abs err "
+          f"{err:.3g} (bound {CPU_ATOL:g}); launches {counts}; "
+          f"{dp_ms:.3f} ms a batch against {one_ms:.3f} ms")
+    return counts
+
+
 def phase_training(device, bare: float):
-    """Phases 15-18 and 22 in one temporary directory: the synthetic train
-    trees (LOOP_SCENES scenes each) and a test tree, then the loop, the
-    resume, the two-phase recipe, the 2048-point config from the
-    two-phase recipe's PoseNetGT checkpoint and the device loop; returns
-    the loop's, PoseNetGT's, the 2048-point config's and the device loop's
-    launches and kernel 11's case on the device loop's path."""
+    """Phases 15-18, 22 and 26 in one temporary directory: the synthetic
+    train trees (LOOP_SCENES scenes each) and a test tree, then the loop,
+    the resume, the two-phase recipe, the 2048-point config from the
+    two-phase recipe's PoseNetGT checkpoint, the device loop and the loop
+    under torchrun; returns the loop's, PoseNetGT's, the 2048-point
+    config's, the device loop's and the torchrun loop's launches and
+    kernel 11's case on the device loop's path."""
     import tempfile
 
     import torch
@@ -2621,7 +3036,9 @@ def phase_training(device, bare: float):
             counts_2048 = phase_2048_config(root, device)
         device_counts, fill_case = phase_device_loop(root, device, trained)
         del trained
-    return loop_counts, p1_counts, counts_2048, device_counts, fill_case
+        torchrun_counts = phase_torchrun_cli(root, device)
+    return (loop_counts, p1_counts, counts_2048, device_counts, fill_case,
+            torchrun_counts)
 
 
 def main() -> int:
@@ -2770,8 +3187,8 @@ def main() -> int:
                             points=2048)
         phase_sampler_2048(device)
 
-    (loop_counts, posenet_counts, counts_2048, device_counts,
-     fill_case) = phase_training(device, bare)
+    (loop_counts, posenet_counts, counts_2048, device_counts, fill_case,
+     torchrun_counts) = phase_training(device, bare)
     record_split("train bf16 2048", errs_t2, counts_2048, times_t2, cases_t2)
     record("train loop", "float32", errs_t, loop_counts, times_t,
            list(train_cases))
@@ -2782,6 +3199,25 @@ def main() -> int:
         times_d = {**times_t, **time_kernels(fill_case, "device loop ")}
     record("device loop", "float32", errs_d, device_counts, times_d,
            ["depth_fill", *train_cases])
+    record("torchrun loop", "float32", errs_t, torchrun_counts, times_t,
+           list(train_cases))
+
+    # phases 23-25, 27: FPS past 2048 points, DDP over NCCL at world 1,
+    # two gloo ranks on the card, the data-parallel eval forward (its
+    # replicas run B = 16: the eval kernels at those shapes)
+    with policy(torch.float32):
+        phase_fps_large(device)
+        ddp_counts = phase_ddp_world1(device)
+        phase_two_ranks_one_card(device)
+        cases_dp = {name: [(args, True) for args in arg_list]
+                    for name, arg_list
+                    in kernel_cases(device, BATCH // 2).items()}
+        errs_dp = phase_kernels(cases_dp, tag="eval dp ")
+        dp_counts = phase_eval_dp(model, device)
+        times_dp = time_kernels(cases_dp, "eval dp ")
+    record("ddp world 1", "float32", errs_t, ddp_counts, times_t,
+           list(train_cases))
+    record("eval dp", "float32", errs_dp, dp_counts, times_dp, list(cases_dp))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device_info}))
@@ -2789,4 +3225,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--torchrun-train"]:
+        torchrun_train_child(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
     sys.exit(main())

@@ -3,7 +3,8 @@
 
 ``python -m istnet_tpu_torch.cli.test --config config/ist_net_default.yaml
   --data_dir data/NOCS --torch_checkpoint ist_net_default.pth
-  [--device_preprocess] [--eval_batch 64] [--only_eval] [--device cpu]``
+  [--device_preprocess] [--eval_batch 64] [--devices N] [--only_eval]
+  [--device cpu]``
 
 Weights come from the port's own checkpoint of ``--test_epoch`` under
 ``log_dir/ckpt`` (``cli/train.py`` writes it), or from
@@ -11,6 +12,12 @@ Weights come from the port's own checkpoint of ``--test_epoch`` under
 (strict), a ``.npz`` of JAX trees goes through ``istnet_tpu_torch.convert``.
 The model runs on the card unless ``--device cpu`` is given, under the
 ``compute_dtype`` of the config.
+
+``--devices N`` is data-parallel inference, as the JAX CLI's
+(``istnet_tpu/cli/test.py:102-157``): a replica on each of ``cuda:0..N-1``
+(N clamped to the cards, with a warning), or N replicas on the CPU with
+``--device cpu`` (JAX's virtual CPU devices); it implies batched inference,
+even at N = 1, at ``--eval_batch`` (default 64), which must divide by N.
 """
 
 from __future__ import annotations
@@ -20,8 +27,6 @@ import os
 import time
 
 _NOT_YET = {
-    "devices": "--devices (multi-GPU inference) is not ported yet: "
-               "ROADMAP.md queue 1, item 8",
     "vis": "--vis (eval/vis.py) is not ported yet: ROADMAP.md queue 1, "
            "item 9",
 }
@@ -48,7 +53,9 @@ def parse_args(argv=None):
                    help="cross-image batched inference at this fixed "
                         "instance batch instead of per-image buckets")
     p.add_argument("--devices", type=int, default=None,
-                   help="data-parallel inference (not ported yet)")
+                   help="data-parallel inference over the first N devices "
+                        "(instance batch split over replicas); implies "
+                        "--eval_batch (default 64), which must divide by N")
     p.add_argument("--vis", action="store_true",
                    help="draw detection boxes (not ported yet)")
     p.add_argument("--vis_axes", action="store_true")
@@ -61,8 +68,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.devices:
-        raise SystemExit(_NOT_YET["devices"])
     if args.vis or args.vis_axes or args.vis_labels:
         raise SystemExit(_NOT_YET["vis"])
 
@@ -121,18 +126,27 @@ def main(argv=None):
         model = model.eval().to(device)
         logger.info(f"loaded {source} on {device}")
 
+        devices, eval_batch = None, args.eval_batch
+        if args.devices:
+            devices = dp_devices(args.devices, device, logger)
+            eval_batch = eval_batch or 64
+            if eval_batch % len(devices):
+                raise SystemExit(f"--eval_batch {eval_batch} must divide by "
+                                 f"the {len(devices)} usable devices")
+            logger.info(f"DP inference over {len(devices)} device(s), "
+                        f"batch {eval_batch}")
         img_size = int(cfg.test.img_size)
         sample_num = int(cfg.test.sample_num)
         if args.device_preprocess:
             dataset = TestDataset(cfg.test, args.data_dir,
                                   device_preprocess=True)
-            if args.eval_batch:
+            if eval_batch:
                 logger.info(f"{len(dataset)} test images (device "
-                            f"preprocessing, batched x{args.eval_batch})")
+                            f"preprocessing, batched x{eval_batch})")
                 test_loop.test_func_device_batched(
                     model, dataset, save_path, REAL_INTRINSICS,
                     img_size=img_size, sample_num=sample_num,
-                    batch_size=args.eval_batch)
+                    batch_size=eval_batch, devices=devices)
             else:
                 logger.info(f"{len(dataset)} test images (device "
                             f"preprocessing)")
@@ -143,14 +157,27 @@ def main(argv=None):
         else:
             dataset = TestDataset(cfg.test, args.data_dir)
             logger.info(f"{len(dataset)} test images")
-            forward = test_loop.make_forward(model)
-            if args.eval_batch:
+            forward = test_loop.make_forward(model, devices)
+            if eval_batch:
                 test_loop.test_func_batched(forward, dataset, save_path,
-                                            batch_size=args.eval_batch)
+                                            batch_size=eval_batch)
             else:
                 test_loop.test_func(forward, dataset, save_path)
 
     return evaluate(save_path, logger=logger)
+
+
+def dp_devices(n: int, device, logger) -> list:
+    """The devices of ``--devices n``: the first n cards (clamped to those
+    there are, with the JAX CLI's warning), or n CPU replicas."""
+    import torch
+
+    if device.type == "cpu":
+        return [device] * n
+    cards = torch.cuda.device_count()
+    if n > cards:
+        logger.warning(f"--devices {n} > available {cards}; using {cards}")
+    return [torch.device("cuda", i) for i in range(min(n, cards))]
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
 ``python -m istnet_tpu_torch.cli.train --config config/ist_net_default.yaml
   [--data_dir data/NOCS] [--log_dir DIR] [--checkpoint_epoch E]
-  [--device cpu]``
+  [--devices N] [--device cpu]``
 
 Wires config -> model (``model_arch``: ``ist_net`` or ``posenet_gt``) ->
 the CAMERA and Real datasets (seeds ``rd_seed`` and ``rd_seed + 1``; raw
@@ -15,17 +15,35 @@ The two-phase recipe's second phase (``freeze_world_enhancer`` with
 ``--checkpoint_epoch`` resumes from ``log_dir/ckpt/<epoch>``: model,
 optimizer and step count, then the next epoch. Checkpoints go to
 ``log_dir/ckpt`` every 5 epochs.
+
+Data parallel, one process a device (the JAX CLI's mesh):
+
+- launched by torchrun (``torchrun --nproc_per_node N -m
+  istnet_tpu_torch.cli.train ...``; its variables set), each process joins
+  the group (NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``);
+- otherwise ``--devices N`` (N > 1) spawns N such processes over a
+  rendezvous on 127.0.0.1: ``cuda:0..N-1``, N clamped to the cards with a
+  warning, or N CPU processes under gloo with ``--device cpu``; ``main``
+  returns rank 0's records (``DataParallelRun``). ``--devices 1`` is the
+  single-process run.
+
+The config's batch sizes are global: every rank loads ``syn_bs / N`` and
+``real_bs / N`` rows, its datasets seeded ``rd_seed + rank * 7919`` and
+``+ 1`` (``istnet_tpu/cli/train.py:175-196``); each rank writes its own log
+file, suffixed ``_p<rank>``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
+import logging
 import os
+import sys
 import time
 
 _NOT_YET = {
-    "devices": "--devices (multi-GPU training) is not ported yet: "
-               "ROADMAP.md queue 1, item 8",
     "pretrained_backbone": "--pretrained_backbone (ImageNet weights for the "
                            "RGB trunk) is not ported yet: ROADMAP.md queue "
                            "1, item 9",
@@ -37,7 +55,8 @@ def parse_args(argv=None):
     p.add_argument("--config", default="config/ist_net_default.yaml")
     p.add_argument("--data_dir", default="data/NOCS")
     p.add_argument("--devices", type=int, default=None,
-                   help="data-parallel training (not ported yet)")
+                   help="data-parallel training over N processes, one a "
+                        "device (default: 1; ignored under torchrun)")
     p.add_argument("--checkpoint_epoch", type=int, default=-1,
                    help="resume from this epoch's checkpoint (-1: fresh)")
     p.add_argument("--pretrained_backbone", default=None,
@@ -69,36 +88,118 @@ def build_model(cfg, train_cfg):
     return model
 
 
+@dataclasses.dataclass
+class DataParallelRun:
+    """What ``main`` returns in the process that spawned the ranks: rank
+    0's per-iteration records and step count, and each rank's
+    ``state_digest`` of its trained model (all equal)."""
+
+    records: list
+    step: int
+    digests: list
+
+
+def state_digest(model) -> str:
+    """SHA-256 of a model's state (every tensor's bytes, in key order)."""
+    import torch
+
+    h = hashlib.sha256()
+    for key, t in model.state_dict().items():
+        h.update(key.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
 def main(argv=None):
     """Train; returns the ``Solver`` (its model, optimizer, step count and
-    per-iteration ``records``)."""
+    per-iteration ``records``), or a ``DataParallelRun`` where ``--devices
+    N`` spawned the ranks."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    if args.devices:
-        raise SystemExit(_NOT_YET["devices"])
     if args.pretrained_backbone:
         raise SystemExit(_NOT_YET["pretrained_backbone"])
 
     import torch
 
-    from istnet_tpu_torch.data.dataset import TrainingDataset
-    from istnet_tpu_torch.data.loader import DataLoader
+    from istnet_tpu_torch.parallel import multihost
+    if multihost.launch_env() is None and (args.devices or 1) > 1:
+        n = args.devices
+        if args.device != "cpu":
+            cards = torch.cuda.device_count()
+            if cards == 0:
+                raise SystemExit("no CUDA card: pass --device cpu to train "
+                                 "with the plain versions on the CPU")
+            if n > cards:
+                logging.getLogger("istnet").warning(
+                    f"--devices {n} > available {cards}; using {cards}")
+                n = cards
+        if n > 1:
+            return _spawn(argv, n, args.device)
+    owned = not torch.distributed.is_initialized()
+    device = multihost.initialize(args.device)
+    try:
+        return train(args, device)
+    finally:
+        if owned:
+            multihost.shutdown()
+
+
+def _spawn(argv, n: int, device: str) -> DataParallelRun:
+    from istnet_tpu_torch.parallel import multihost
+    if device != "cpu":
+        from istnet_tpu_torch.ops import _build
+        _build.build()       # once here, not in every rank at once
+    results = multihost.spawn(_rank_main, n, argv)
+    digests = [r["digest"] for r in results]
+    if len(set(digests)) != 1:
+        raise RuntimeError(f"the ranks' trained models differ: {digests}")
+    return DataParallelRun(results[0]["records"], results[0]["step"], digests)
+
+
+def _rank_main(rank: int, world: int, store, argv) -> dict:
+    import torch
+
+    from istnet_tpu_torch.parallel import multihost
+    from istnet_tpu_torch.parallel.mesh import unwrap
+    args = parse_args(argv)
+    if args.device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    device = multihost.initialize(args.device, store=store, rank=rank,
+                                  world_size=world)
+    try:
+        solver = train(args, device)
+        return {"records": solver.records, "step": solver.step,
+                "digest": state_digest(unwrap(solver.model))}
+    finally:
+        multihost.shutdown()
+
+
+def train(args, device):
+    """The run of one process (of the group, where there is one) on
+    ``device``; returns its ``Solver``."""
+    import torch
+
     from istnet_tpu_torch.nn import precision
+    from istnet_tpu_torch.parallel import multihost
     from istnet_tpu_torch.train import checkpoints
     from istnet_tpu_torch.train.solver import Solver
     from istnet_tpu_torch.train.train_state import TrainConfig, make_optimizer
     from istnet_tpu_torch.utils import Config, get_logger
 
     cfg = Config.fromfile(args.config)
-    device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --device cpu to train with the "
                          "plain versions on the CPU")
+    n_proc, rank = multihost.process_count(), multihost.process_index()
     exp_name = os.path.splitext(os.path.basename(args.config))[0]
     log_dir = args.log_dir or os.path.join("log", exp_name)
     os.makedirs(log_dir, exist_ok=True)
+    suffix = f"_p{rank}" if n_proc > 1 else ""
     logger = get_logger(path_file=os.path.join(
-        log_dir, f"train_{int(time.time())}.log"))
-    logger.info(f"config: {args.config} -> {log_dir} on {device}")
+        log_dir, f"train_{int(time.time())}{suffix}.log"))
+    logger.info(f"config: {args.config} -> {log_dir} on {device}"
+                + (f" (process {rank}/{n_proc})" if n_proc > 1 else ""))
 
     # the config's policy (istnet_tpu/cli/train.py:111-113); the parameters
     # and Adam's state stay float32 under both
@@ -133,15 +234,36 @@ def main(argv=None):
             and cfg.train_dataset.get("use_shape_aug", False)):
         logger.warning("both use_device_aug and use_shape_aug enabled — "
                        "samples would be augmented twice; disable one")
+    loaders = build_loaders(cfg, args.data_dir, train_cfg.iters_per_epoch,
+                            rank, n_proc)
+    solver = Solver(model, optimizer, train_cfg, cfg,
+                    syn_loader=loaders["syn"], real_loader=loaders["real"],
+                    logger=logger, log_dir=log_dir, start_epoch=start_epoch,
+                    step=step)
+    solver.solve()
+    return solver
+
+
+def build_loaders(cfg, data_dir: str, iters_per_epoch: int, rank: int = 0,
+                  world: int = 1) -> dict:
+    """Rank ``rank``'s syn and real loaders of ``world``: its share of the
+    config's global batch sizes, datasets seeded ``rd_seed + rank * 7919``
+    and ``+ 1`` (``RANK_SEED_STRIDE``)."""
+    from istnet_tpu_torch.data.dataset import TrainingDataset
+    from istnet_tpu_torch.data.loader import DataLoader
+    from istnet_tpu_torch.parallel.multihost import per_host_batch_size
+    from istnet_tpu_torch.train.solver import RANK_SEED_STRIDE
+
     dl_cfg = cfg.train_dataloader
-    iters_per_epoch = train_cfg.iters_per_epoch
-    seed0 = int(cfg.get("rd_seed", 1))
+    seed0 = int(cfg.get("rd_seed", 1)) + rank * RANK_SEED_STRIDE
     loaders = {}
     for name, data_type, bs, seed in (
-            ("syn", "syn", int(dl_cfg.syn_bs), seed0),
-            ("real", "real_withLabel", int(dl_cfg.real_bs), seed0 + 1)):
+            ("syn", "syn", per_host_batch_size(int(dl_cfg.syn_bs), world),
+             seed0),
+            ("real", "real_withLabel",
+             per_host_batch_size(int(dl_cfg.real_bs), world), seed0 + 1)):
         loaders[name] = DataLoader(
-            TrainingDataset(cfg.train_dataset, args.data_dir, data_type=data_type,
+            TrainingDataset(cfg.train_dataset, data_dir, data_type=data_type,
                             num_img_per_epoch=iters_per_epoch * bs,
                             use_fill_miss=bool(dl_cfg.use_fill_miss),
                             use_composed_img=bool(dl_cfg.use_composed_img),
@@ -150,13 +272,7 @@ def main(argv=None):
                                 "use_device_preprocess", False))),
             bs, shuffle=bool(dl_cfg.shuffle), drop_last=bool(dl_cfg.drop_last),
             num_workers=int(dl_cfg.num_workers))
-
-    solver = Solver(model, optimizer, train_cfg, cfg,
-                    syn_loader=loaders["syn"], real_loader=loaders["real"],
-                    logger=logger, log_dir=log_dir, start_epoch=start_epoch,
-                    step=step)
-    solver.solve()
-    return solver
+    return loaders
 
 
 if __name__ == "__main__":

@@ -20,6 +20,9 @@ and batches at the training width, B=24 (``syn_bs`` 18 + ``real_bs`` 6 of
 pipeline (``TrainingDataset(device_preprocess=True)``'s arrays), as
 ``tools/train_bench.py::make_synth_raw_batch`` makes it.
 
+``dryrun_multichip`` is ``__graft_entry__.dryrun_multichip``'s data-parallel
+half: one DDP step over n processes at its tiny shapes.
+
 ``make_frame`` and ``build_device_forward`` are the serving path's entry:
 a synthetic raw 480 x 640 RGB-D frame with instance masks, and the function
 that takes such a frame to poses on the model's device
@@ -275,3 +278,78 @@ def build_device_forward(dtype: torch.dtype = torch.float32,
     return model, make_device_forward(model, REAL_INTRINSICS,
                                       img_size=img_size,
                                       sample_num=sample_num)
+
+
+DRYRUN_SA_NPOINTS, DRYRUN_POINTS, DRYRUN_IMG = (32, 16, 8, 8), 128, 48
+# float32 sums in another order, amplified by BNs whose batch variance is
+# tiny at 128 points (measured 3.3e-5 at n = 2 on the CPU)
+DRYRUN_LOSS_RTOL = 1e-4
+DRYRUN_TIMEOUT_S = 600
+
+
+def _dryrun_rank(rank: int, world: int, store, device: str) -> float:
+    """One rank of ``dryrun_multichip``: its rows of the batch, one step of
+    the DDP-wrapped model; the loss averaged over the ranks."""
+    from istnet_tpu_torch.parallel import collectives, mesh, multihost
+    from istnet_tpu_torch.train.train_state import (TrainConfig,
+                                                    make_optimizer, train_step)
+
+    if device == "cpu":
+        torch.set_num_threads(1)
+    dev = multihost.initialize(device, store=store, rank=rank,
+                               world_size=world)
+    try:
+        model, batch = _dryrun_setup(world, dev)
+        cfg = TrainConfig()
+        opt = make_optimizer(model, cfg)
+        parts = train_step(mesh.wrap_dp(model), opt,
+                           mesh.shard_batch(batch, rank, world), 0,
+                           torch.Generator(device=dev).manual_seed(rank), cfg)
+        return float(collectives.all_reduce_mean(parts["total"]))
+    finally:
+        multihost.shutdown()
+
+
+def _dryrun_setup(b: int, device) -> tuple:
+    """The dry run's model (train mode, dropout off: the ranks draw other
+    masks than one process would) and its global batch of ``b`` rows."""
+    from istnet_tpu_torch.nn.layers import Dropout2d
+
+    model = build_model(device, seed=0, sa_npoints=DRYRUN_SA_NPOINTS).train()
+    for m in model.modules():
+        if isinstance(m, Dropout2d):
+            m.eval()
+    return model, make_train_batch(b, DRYRUN_POINTS, DRYRUN_IMG, seed=1,
+                                   device=device)
+
+
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> float:
+    """One full data-parallel train step over ``n_devices`` processes at
+    ``__graft_entry__.dryrun_multichip``'s shapes (B = n, N = 128, 48 x 48,
+    SA npoints 32/16/8/8): NCCL over ``cuda:0..n-1`` (n cards needed), or
+    gloo over n CPU processes with ``device="cpu"``. The loss must be finite,
+    the same on every rank, and equal within ``DRYRUN_LOSS_RTOL`` to one
+    process's step on the whole batch; returns it."""
+    from istnet_tpu_torch.parallel import multihost
+    from istnet_tpu_torch.train.train_state import (TrainConfig,
+                                                    make_optimizer, train_step)
+
+    if device != "cpu":
+        on_device(device, "dryrun_multichip")
+        if torch.cuda.device_count() < n_devices:
+            raise RuntimeError(f"dryrun_multichip: need {n_devices} cards, "
+                               f"have {torch.cuda.device_count()}")
+    losses = multihost.spawn(_dryrun_rank, n_devices, device,
+                             timeout=DRYRUN_TIMEOUT_S)
+    model, batch = _dryrun_setup(n_devices, torch.device(device))
+    cfg = TrainConfig()
+    want = float(train_step(model, make_optimizer(model, cfg), batch, 0,
+                            torch.Generator(device=device), cfg)["total"])
+    loss = losses[0]
+    if not np.isfinite(loss) or len(set(losses)) != 1 or not np.isclose(
+            loss, want, rtol=DRYRUN_LOSS_RTOL, atol=0.0):
+        raise AssertionError(f"dryrun_multichip({n_devices}): DP losses "
+                             f"{losses}, one process {want}")
+    print(f"dryrun_multichip({n_devices}): DP OK, loss={loss:.4f} (one "
+          f"process {want:.4f}), step=1")
+    return loss

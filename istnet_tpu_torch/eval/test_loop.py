@@ -20,8 +20,12 @@ kernel sees few and the pkls equal to the JAX package's. Pose assembly:
 Results leave the device late: each loop queues a closure that copies its
 tensors to the host and writes, and ``_DrainQueue`` runs the oldest only
 when more than ``depth`` are waiting, so the host's decoding, the device's
-work and the writing overlap. The data-parallel ``mesh=`` of the JAX loops
-is not ported; the functions do not take the argument.
+work and the writing overlap.
+
+Data parallel (JAX's ``mesh=``): ``make_forward(model, devices)`` and
+``test_func_device_batched(..., devices=...)`` run each instance batch
+through ``parallel.mesh.eval_forward_dp``, a replica of the model on each
+device, its rows split over them; the batch must divide by their count.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 
 from istnet_tpu_torch.data.device_preprocess import (
     fill_missing, preprocess_shared_image)
+from istnet_tpu_torch.parallel.mesh import eval_forward_dp
 
 _POSE_KEYS = ("pred_rotation", "pred_translation", "pred_size")
 _GT_KEYS = ("gt_class_ids", "gt_bboxes", "gt_RTs", "gt_scales",
@@ -171,10 +176,13 @@ def _model_device(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def make_forward(model):
+def make_forward(model, devices=None):
     """``forward(inputs) -> end_points`` for ``test_func`` and
     ``test_func_batched``: numpy (or tensor) inputs go to the model's
-    device and through its eval forward."""
+    device and through its eval forward; with ``devices``, through a
+    replica on each of them (``eval_forward_dp``), outputs on the first."""
+    if devices is not None:
+        return eval_forward_dp(model, devices)
     device = _model_device(model)
 
     @torch.inference_mode()
@@ -265,7 +273,8 @@ def test_func_device(device_forward, dataset, save_path: str,
 
 def make_device_batched(model, intrinsics, img_size: int = 192,
                         sample_num: int = 1024, batch_size: int = 64,
-                        kb: int = 16, lag: int = 2, min_points: int = 16):
+                        kb: int = 16, lag: int = 2, min_points: int = 16,
+                        devices=None):
     """Device-side streaming compaction: the device preprocessing composed
     with cross-image instance batching; preprocessed instances never leave
     the device between the two.
@@ -282,6 +291,10 @@ def make_device_batched(model, intrinsics, img_size: int = 192,
       the overflow region ``[B:BUF)`` moves to the front and the cursor
       drops by B.
 
+    With ``devices`` the forward runs over a replica on each device
+    (``eval_forward_dp``; the buffers stay on the model's device, the
+    first of them): ``batch_size`` must divide by their count.
+
     Buffers and cursor are updated in place. The buffer holds ``BUF = B +
     (lag+1)*kb + 1`` rows: the host learns each chunk's valid count up to
     ``lag`` chunks late, so up to ``lag+1`` undecided chunks may append
@@ -294,6 +307,10 @@ def make_device_batched(model, intrinsics, img_size: int = 192,
     intr = torch.as_tensor(intrinsics, dtype=torch.float32, device=device)
     buf_n = batch_size + (lag + 1) * kb + 1
     trash = buf_n - 1
+    if devices is not None and batch_size % len(devices):
+        raise ValueError(f"eval batch {batch_size} must divide by the "
+                         f"{len(devices)}-device mesh")
+    run = model if devices is None else eval_forward_dp(model, devices)
 
     def init_buffers():
         bufs = {
@@ -331,7 +348,7 @@ def make_device_batched(model, intrinsics, img_size: int = 192,
 
     @torch.inference_mode()
     def forward(buffers, pos):
-        ep = model({k: v[:batch_size] for k, v in buffers.items()})
+        ep = run({k: v[:batch_size] for k, v in buffers.items()})
         ep = {k: ep[k] for k in _POSE_KEYS}
         for v in buffers.values():
             # source and destination overlap: move through a copy
@@ -346,7 +363,8 @@ def test_func_device_batched(model, dataset, save_path: str, intrinsics,
                              img_size: int = 192, sample_num: int = 1024,
                              batch_size: int = 64, kb: int = 16,
                              min_points: int = 16, lag: int = 2,
-                             progress: bool = True, seed: int = 0) -> None:
+                             progress: bool = True, seed: int = 0,
+                             devices=None) -> None:
     """Device preprocessing WITH cross-image instance batching: the dataset
     yields raw arrays (``TestDataset(device_preprocess=True)``); the model
     runs once per ``batch_size`` valid instances across images instead of
@@ -357,13 +375,15 @@ def test_func_device_batched(model, dataset, save_path: str, intrinsics,
     ``seq % batch_size`` of flush ``seq // batch_size``. The host never
     needs buffer positions, only each chunk's ``n_valid``, which it reads
     ``lag`` chunks late from pinned memory (a non-blocking copy and an
-    event), so that no frame waits for the device.
+    event), so that no frame waits for the device. ``devices``: the
+    forward over a replica on each (``make_device_batched``).
     """
     os.makedirs(save_path, exist_ok=True)
     device = _model_device(model)
     init_buffers, fill, append, forward = make_device_batched(
         model, intrinsics, img_size=img_size, sample_num=sample_num,
-        batch_size=batch_size, kb=kb, lag=lag, min_points=min_points)
+        batch_size=batch_size, kb=kb, lag=lag, min_points=min_points,
+        devices=devices)
     buffers, pos = init_buffers()
     generator = _device_generator(device, seed)
 

@@ -102,7 +102,17 @@ class BatchNorm(nn.Module):
     weight bridge folds the SharedMLP's dense bias into ``running_mean``
     (``convert.py``), so the port's activations are JAX's shifted by that
     bias. Two-pass is accurate at any shift; the port then differs from JAX
-    by JAX's own one-pass error, which the float32 tests bound."""
+    by JAX's own one-pass error, which the float32 tests bound.
+
+    Data parallel (``group``, set by ``parallel.mesh.set_batch_norm_group``,
+    of more than one rank): the statistics are the global batch's, as
+    JAX's are under GSPMD (``istnet_tpu/nn/layers.py:195-220``). The mean
+    is the all-reduced sum over the all-reduced count, the biased variance
+    the all-reduced centred sum of squares about that mean (still two-pass);
+    both through the differentiable all-reduce, so the backward is the
+    global-batch loss's gradient. ``batch_mean`` / ``batch_var`` are then
+    the global statistics, and every rank's EMA is the same. A group of one
+    rank, or none, runs the single-process code; eval uses no collective."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -115,6 +125,7 @@ class BatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
         self.batch_mean: torch.Tensor | None = None
         self.batch_var: torch.Tensor | None = None
+        self.group = None
 
     def eval_tensors(self) -> tuple:
         """What the eval transform is made from (a ``DerivedCache`` key)."""
@@ -124,10 +135,15 @@ class BatchNorm(nn.Module):
         xs = x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            var, mean = torch.var_mean(xs, dim=axes, correction=0)
-            count = x.numel() // x.shape[-1]
+            if self.group is not None and self.group.size() > 1:
+                mean, var, count = _global_moments(xs, axes, self.group)
+                correction = count / (count - 1).clamp(min=1)
+            else:
+                var, mean = torch.var_mean(xs, dim=axes, correction=0)
+                count = x.numel() // x.shape[-1]
+                correction = count / max(count - 1, 1)
             self.batch_mean = mean.detach()
-            self.batch_var = var.detach() * (count / max(count - 1, 1))
+            self.batch_var = var.detach() * correction
             y = (xs - mean) * torch.rsqrt(var + self.eps)
         else:
             y = (xs - self.running_mean) * self.invstd()
@@ -135,6 +151,23 @@ class BatchNorm(nn.Module):
 
     def invstd(self) -> torch.Tensor:
         return torch.rsqrt(self.running_var + self.eps)
+
+
+def _global_moments(xs: torch.Tensor, axes: tuple, group):
+    """Mean, biased variance and row count over every rank's rows: the sum
+    and the count in one all-reduce, then the centred sum of squares about
+    the global mean in a second. The count stays a tensor on the device
+    (no sync; exact in float32 up to 2^24 rows)."""
+    from istnet_tpu_torch.parallel.collectives import all_reduce_sum
+
+    local = xs.numel() // xs.shape[-1]
+    packed = all_reduce_sum(torch.cat([xs.sum(dim=axes),
+                                       xs.new_full((1,), local)]), group)
+    count = packed[-1].detach()
+    mean = packed[:-1] / count
+    d = xs - mean
+    var = all_reduce_sum((d * d).sum(dim=axes), group) / count
+    return mean, var, count
 
 
 class PReLU(nn.Module):

@@ -7,7 +7,10 @@ Orbax gives the JAX package), holding ``checkpoint.pt``: ``torch.save`` of
 {"epoch": int, ...}}``. Tensors are saved on the device they lie on and
 read back onto the CPU (``restore_for_eval`` takes another
 ``map_location``), so a checkpoint written on the card restores on a host
-without one. The dropout generator is not saved: as in
+without one. Data parallel, every rank calls ``save_checkpoint``: rank 0
+writes the state of the module inside the DDP wrapper (the reference keys,
+no ``module.`` prefix), then all ranks meet at a barrier; every rank
+restores the same file. The dropout generator is not saved: as in
 JAX, a resumed run seeds it again from ``rd_seed`` and rebuilds its
 datasets from the seed, so it is not the unbroken run.
 
@@ -24,6 +27,8 @@ import os
 import torch
 
 from istnet_tpu_torch import convert
+from istnet_tpu_torch.parallel import multihost
+from istnet_tpu_torch.parallel.mesh import unwrap
 
 FILE = "checkpoint.pt"
 
@@ -37,17 +42,19 @@ def save_checkpoint(ckpt_dir: str, epoch: int, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, step: int,
                     extra_meta: dict | None = None) -> str:
     """Write ``ckpt_dir/<epoch>/checkpoint.pt`` (through a temporary file,
-    so that a cut run leaves no half-written checkpoint); returns its
-    path."""
+    so that a cut run leaves no half-written checkpoint; rank 0 writes,
+    then every rank waits for it); returns its path."""
     path = checkpoint_path(ckpt_dir, epoch)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload = {"model": model.state_dict(),
-               "optimizer": optimizer.state_dict(),
-               "step": int(step),
-               "meta": {"epoch": int(epoch), **(extra_meta or {})}}
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    if multihost.process_index() == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        payload = {"model": unwrap(model).state_dict(),
+                   "optimizer": optimizer.state_dict(),
+                   "step": int(step),
+                   "meta": {"epoch": int(epoch), **(extra_meta or {})}}
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    multihost.barrier()
     return path
 
 
@@ -78,7 +85,7 @@ def restore_checkpoint(ckpt_dir: str, epoch: int, model: torch.nn.Module,
     CPU as in a fresh run (on the card, every update would read them back
     with a sync). Returns the payload (``step``, ``meta``)."""
     payload = _load(ckpt_dir, epoch, "cpu")
-    model.load_state_dict(payload["model"], strict=True)
+    unwrap(model).load_state_dict(payload["model"], strict=True)
     if optimizer is not None:
         optimizer.load_state_dict(payload["optimizer"])
     return payload

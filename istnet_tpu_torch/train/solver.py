@@ -1,5 +1,5 @@
 """The training loop: epochs over mixed syn + real batches (counterpart of
-``istnet_tpu/train/solver.py``), on one device.
+``istnet_tpu/train/solver.py``), on one device or data parallel.
 
 Each iteration takes one batch of each loader, concatenates them
 (``concat_batches``: one step on the ``syn_bs + real_bs`` rows equals the
@@ -30,6 +30,17 @@ pending copy). Every ``per_write`` iterations the running averages of the
 loss parts and of ``T_data`` (waiting for the batch and copying it),
 ``T_dispatch`` (enqueueing the step) and ``T_iter`` (the loop's period) go
 to the log and the scalar writer.
+
+Data parallel: in a process group (``parallel/multihost.py``, one process
+a device) the Solver wraps the model with ``parallel.mesh.wrap_dp``
+whatever the world size (global-batch BatchNorm, averaged gradients), its
+loaders carrying this rank's share of the global batch (``cli/train.py``).
+Each rank's dropout and device-pipeline draws come from a generator seeded
+from ``rd_seed`` and its rank, so that ranks draw differently for different
+rows, as JAX draws over the global batch. The loss parts are averaged over
+the ranks when they are drained (one small collective, ``pipeline_depth``
+steps late): every rank then logs JAX's global-batch metrics. Rank 0 alone
+feeds the scalar writer; checkpoints are rank 0's, behind a barrier.
 """
 
 from __future__ import annotations
@@ -44,6 +55,9 @@ import torch
 from istnet_tpu_torch.data.device_augment import make_device_augment
 from istnet_tpu_torch.data.device_preprocess import make_train_preprocess
 from istnet_tpu_torch.nn import precision
+from istnet_tpu_torch.parallel import multihost
+from istnet_tpu_torch.parallel.collectives import all_reduce_mean
+from istnet_tpu_torch.parallel.mesh import FSDP_NOT_YET, wrap_dp
 from istnet_tpu_torch.train import checkpoints
 from istnet_tpu_torch.train.train_state import TrainConfig, train_step
 from istnet_tpu_torch.utils.logging import LogBuffer, MetricWriter
@@ -51,8 +65,9 @@ from istnet_tpu_torch.utils.logging import LogBuffer, MetricWriter
 LABEL_KEYS = ("rotation_label", "translation_label", "size_label", "qo")
 INPUT_KEYS = ("rgb", "pts", "choose", "category_label", "qo", "sym_info")
 CHECKPOINT_EVERY = 5
-PARALLEL_NOT_YET = ("parallel: {fsdp: N > 1} (FSDP) is not ported yet: "
-                    "ROADMAP.md queue 1, item 8")
+# seeds of a rank's streams: rd_seed + rank * RANK_SEED_STRIDE (the JAX
+# CLI's per-host loader seeds, istnet_tpu/cli/train.py:191)
+RANK_SEED_STRIDE = 7919
 
 
 def split_batch(np_batch: dict) -> dict:
@@ -126,8 +141,9 @@ class Solver:
     """Trains ``model`` (in train mode, on its device) with ``optimizer``
     built by ``make_optimizer`` for ``train_cfg``. ``config`` is the YAML
     config (``max_epoch``, ``per_write``, ``pipeline_depth``, ``rd_seed``,
-    ``train_dataset``, ``parallel``, ``compute_dtype``); ``step`` is the step count to start
-    from (a resumed run's), ``start_epoch`` the first epoch to run."""
+    ``train_dataset``, ``parallel``, ``compute_dtype``); ``step`` is the
+    step count to start from (a resumed run's), ``start_epoch`` the first
+    epoch to run. In a process group ``self.model`` is the DDP wrapper."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  train_cfg: TrainConfig, config, syn_loader=None,
@@ -135,15 +151,17 @@ class Solver:
                  start_epoch: int = 1, step: int = 0):
         par = config.get("parallel") or {}
         if int(par.get("fsdp", 1)) > 1:
-            raise NotImplementedError(PARALLEL_NOT_YET)
-        self.model = model
+            raise NotImplementedError(FSDP_NOT_YET)
+        self.rank = multihost.process_index()
+        self.parallel = torch.distributed.is_initialized()
+        self.model = wrap_dp(model) if self.parallel else model
         self.optimizer = optimizer
         self.train_cfg = train_cfg
         self.logger = logger
         self.syn_loader = syn_loader
         self.real_loader = real_loader
         self.log_buffer = LogBuffer()
-        self.writer = MetricWriter(log_dir)
+        self.writer = MetricWriter(log_dir if self.rank == 0 else None)
         self.log_dir = log_dir
         self.per_write = int(config.get("per_write", 50))
         # steps the host runs ahead of the metrics it reads
@@ -161,7 +179,7 @@ class Solver:
         self.preprocess_fn, self.augment_fn = device_pipeline(config,
                                                               self.dtype)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            int(config.get("rd_seed", 1)))
+            int(config.get("rd_seed", 1)) + self.rank * RANK_SEED_STRIDE)
 
     def _log(self, msg: str) -> None:
         if self.logger is not None:
@@ -215,6 +233,9 @@ class Solver:
 
         def drain_one() -> None:
             record, parts = inflight.popleft()
+            if self.parallel:
+                values = all_reduce_mean(torch.stack(list(parts.values())))
+                parts = dict(zip(parts, values))
             record.update({k: v.item() for k, v in parts.items()})
             self.log_buffer.update({k: v for k, v in record.items()
                                     if k not in ("epoch", "step", "lr")})

@@ -22,6 +22,11 @@
   hooks run it: ``preprocess_fn`` turns a raw batch into inputs and labels,
   ``augment_fn`` applies the FS-Net augmentation, both without a graph and
   with their draws taken from the step's generator before the dropout's.
+- Data parallel: ``model`` may be the ``DistributedDataParallel`` of
+  ``parallel.mesh.wrap_dp`` (one process a device, global-batch
+  BatchNorm); the BNs and the optimizer's parameters are the inner
+  module's, and each rank returns its own rows' loss parts (the Solver
+  averages them over the ranks).
 - The step repeats bit for bit on the card: its forward and backward run
   with cuDNN restricted to deterministic algorithms
   (``deterministic_cudnn``), and the model's own backward sums (the PSP
@@ -43,6 +48,7 @@ import torch
 from istnet_tpu_torch.models import posenet_gt
 from istnet_tpu_torch.models.ist_net import supervised_loss
 from istnet_tpu_torch.nn.layers import BatchNorm
+from istnet_tpu_torch.parallel.mesh import unwrap
 from istnet_tpu_torch.train.schedules import bn_momentum, cyclic_triangular_lr
 
 
@@ -112,8 +118,9 @@ class TrainConfig:
 def make_optimizer(model: torch.nn.Module,
                    cfg: TrainConfig) -> torch.optim.Adam:
     """Adam over the trainable parameters (all but ``world_enhancer.*``
-    in the frozen recipe); ``train_step`` sets its LR every step."""
-    params = [p for name, p in model.named_parameters()
+    in the frozen recipe) of ``model`` (or of the module a DDP wrapper
+    holds); ``train_step`` sets its LR every step."""
+    params = [p for name, p in unwrap(model).named_parameters()
               if not (cfg.freeze_world_enhancer
                       and name.startswith("world_enhancer."))]
     return torch.optim.Adam(params, lr=cfg.lr(0),

@@ -28,7 +28,9 @@ the card against autograd through the plain ops on the CPU; one tiny train
 step on the card against the same step on the CPU. The training loop: 2
 Solver steps at full width from a synthetic train tree with each step's
 launch counts (IST-Net and PoseNetGT), and a checkpoint written on the card
-restored on the CPU and back onto the card.
+restored on the CPU and back onto the card. Kernel 1 past 2048 points (both
+of its larger layouts). Data parallel: DDP over NCCL at world 1 bit-equal
+to the plain card step.
 """
 
 import numpy as np
@@ -90,6 +92,24 @@ def test_fps_kernel_every_branch(cuda, n, npoint):
     xyz = _f32(np.random.RandomState(n + 1).randn(2, n, 3) * 0.1, cuda)
     assert torch.equal(ops.furthest_point_sample(xyz, npoint),
                        plain.furthest_point_sample(xyz, npoint))
+
+
+@pytest.mark.parametrize("n,b,npoint", [(2049, 2, 512), (4096, 2, 1024),
+                                         (8192, 2, 1024), (20000, 2, 512),
+                                         (60000, 1, 128)])
+def test_fps_kernel_past_2048_points(cuda, n, b, npoint):
+    """Clouds past 2048 points: registers of 16 warps to 8192, then the
+    stream kernel with its minima in shared memory (20000) or in the
+    wrapper's workspace (60000); ties among duplicated points too."""
+    rng = np.random.RandomState(n)
+    xyz = _f32(rng.randn(b, n, 3) * 0.1, cuda)
+    assert torch.equal(ops.furthest_point_sample(xyz, npoint),
+                       plain.furthest_point_sample(xyz, npoint))
+    dup = _f32((rng.randn(b, 48, 3) * 0.1)[:, rng.randint(0, 48, n)], cuda)
+    got = ops.furthest_point_sample(dup, 64)
+    assert torch.equal(got, plain.furthest_point_sample(dup, 64))
+    assert (got[:, 48:] == 0).all()       # every minimum 0: index 0 wins
+    assert ops.launch_counts()["fps"] == 2
 
 
 @pytest.mark.parametrize("n", [128, 1024, 2048])
@@ -1274,4 +1294,39 @@ def test_card_train_step_repeats_bit_for_bit(cuda):
     (l1, g1), (l2, g2) = runs
     assert all(torch.equal(l1[k], l2[k]) for k in l1)
     differ = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+    assert not differ, differ[:5]
+
+
+@pytest.mark.parametrize("freeze", [False, True], ids=["default", "frozen"])
+def test_ddp_world_one_over_nccl_is_bit_equal_to_the_plain_step(cuda, tmp_path,
+                                                                freeze):
+    """A process group of one rank over NCCL: 2 steps of the DDP-wrapped
+    model (``parallel.mesh.wrap_dp``) give the plain card step's loss parts
+    and state, every bit, and its launches."""
+    from istnet_tpu_torch.parallel import multihost, wrap_dp
+
+    cfg = TrainConfig.frozen() if freeze else TrainConfig()
+    multihost.initialize("cuda", init_method=f"file://{tmp_path}/rdv",
+                         rank=0, world_size=1)
+    runs = []
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        for wrap in (False, True):
+            model = build_train_model(cuda, seed=3, sa_npoints=(32, 16, 8, 8),
+                                      freeze_world_enhancer=freeze)
+            opt = make_optimizer(model, cfg)
+            step_model = wrap_dp(model) if wrap else model
+            gen = torch.Generator(device=cuda).manual_seed(1)
+            ops.reset_launch_counts()
+            parts = [train_step(step_model, opt,
+                                make_train_batch(4, 128, 48, seed=5 + k,
+                                                 device=cuda), k, gen, cfg)
+                     for k in range(2)]
+            runs.append((parts, model.state_dict(), ops.launch_counts()))
+    finally:
+        multihost.shutdown()
+    (p0, s0, c0), (p1, s1, c1) = runs
+    assert c0 == c1 and c0["fps"] == 16
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(p0, p1) for k in a)
+    differ = [k for k in s0 if not torch.equal(s0[k], s1[k])]
     assert not differ, differ[:5]

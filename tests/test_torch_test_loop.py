@@ -328,21 +328,32 @@ def test_cli_end_to_end_from_a_saved_state_dict(models, tree, tmp_path):
         iou_b, pose_b = cli.main(base + ["--log_dir", str(tmp_path / "b"),
                                          "--device_preprocess",
                                          "--eval_batch", "4"])
+        # data parallel over two CPU replicas (batched, even at N = 1)
+        iou_d, pose_d = cli.main(base + ["--log_dir", str(tmp_path / "d"),
+                                         "--devices", "2", "--eval_batch",
+                                         "4"])
+        with pytest.raises(SystemExit, match="--eval_batch 3 must divide by "
+                                             "the 2 usable devices"):
+            cli.main(base + ["--log_dir", str(tmp_path / "e"), "--devices",
+                             "2", "--eval_batch", "3"])
     finally:
         import logging
         for h in list(logging.getLogger("istnet").handlers):
             logging.getLogger("istnet").removeHandler(h)
             h.close()
-    for aps in (iou_a, pose_a, iou_b, pose_b):
+    for aps in (iou_a, pose_a, iou_b, pose_b, iou_d, pose_d):
         assert np.isfinite(aps).all()
     a = _load(tmp_path / "a" / "eval_epoch30")
     b = _load(tmp_path / "b" / "eval_epoch30")
-    assert list(a) == list(b) and len(a) == 3
+    d = _load(tmp_path / "d" / "eval_epoch30")
+    assert list(a) == list(b) == list(d) and len(a) == 3
     for name in a:
         np.testing.assert_array_equal(a[name]["pred_class_ids"],
                                       b[name]["pred_class_ids"])
-    with pytest.raises(SystemExit, match="queue 1"):
-        cli.main(base + ["--devices", "2"])
+        np.testing.assert_array_equal(a[name]["pred_class_ids"],
+                                      d[name]["pred_class_ids"])
+        np.testing.assert_allclose(d[name]["pred_RTs"], a[name]["pred_RTs"],
+                                   rtol=1e-5, atol=1e-6)
     with pytest.raises(SystemExit, match="no checkpoint of epoch 30"):
         cli.main(["--config", str(cfg), "--data_dir", tree, "--device", "cpu",
                   "--log_dir", str(tmp_path / "c")])

@@ -41,8 +41,9 @@ def test_cli_train_resume_and_test_from_its_checkpoint(root, tmp_path,
     restores it (model and optimizer bit-equal to the saved state) and runs
     epoch 6 from step 10 at ``TrainConfig.lr(10)``; ``cli/test.py`` then
     restores epoch 5 without ``--torch_checkpoint`` and gives finite APs.
-    What is not ported exits with its ROADMAP item; a ``compute_dtype:
-    bfloat16`` config trains under the bf16 policy."""
+    What is not ported exits with its ROADMAP item; ``--devices 2``
+    trains over two CPU ranks; a ``compute_dtype: bfloat16`` config trains
+    under the bf16 policy."""
     from istnet_tpu_torch.cli import test as cli_test
     from istnet_tpu_torch.cli import train as cli_train
 
@@ -79,10 +80,17 @@ def test_cli_train_resume_and_test_from_its_checkpoint(root, tmp_path,
     assert np.isfinite(iou).all() and np.isfinite(pose).all()
     assert len(glob.glob(os.path.join(log_dir, "eval_epoch5", "*.pkl"))) == 2
 
-    for argv, item in ((["--devices", "2"], "item 8"),
-                       (["--pretrained_backbone", "r.npz"], "item 9")):
-        with pytest.raises(SystemExit, match=item):
-            cli_train.main(["--config", cfg5] + data + argv)
+    with pytest.raises(SystemExit, match="item 9"):
+        cli_train.main(["--config", cfg5] + data
+                       + ["--pretrained_backbone", "r.npz"])
+    # --devices 2 trains: two CPU ranks under gloo, each on 1 + 1 rows
+    dp = cli_train.main(["--config", _write_cfg(tmp_path / "dp.yaml", 1, 2),
+                         "--data_dir", str(root / "data"), "--log_dir",
+                         str(tmp_path / "log_dp"), "--device", "cpu",
+                         "--devices", "2"])
+    assert [r["step"] for r in dp.records] == [0, 1] and dp.step == 2
+    assert all(np.isfinite(r["total"]) for r in dp.records)
+    assert len(dp.digests) == 2 and len(set(dp.digests)) == 1
     # a bf16 config trains under the bf16 policy, its parameters float32
     bf16 = _write_cfg(tmp_path / "bf16.yaml", 1, 2, compute_dtype="bfloat16")
     try:

@@ -287,13 +287,13 @@ def test_solver_losses_match_jax_train_step(root, tmp_path, monkeypatch):
 
 
 def test_solver_refuses_what_is_not_ported(root):
-    """FSDP names its ROADMAP item; the device augmentation with a host-only
-    augmentation (box cage, point noise, non-linear) raises the JAX
-    package's ValueError."""
+    """FSDP names its ROADMAP item (queue 1, item 10); the device
+    augmentation with a host-only augmentation (box cage, point noise,
+    non-linear) raises the JAX package's ValueError."""
     model = torch.nn.Linear(2, 2)
     cfg = TrainConfig()
     opt = make_optimizer(model, cfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         Solver(model, opt, cfg, Config({"max_epoch": 1,
                                          "parallel": {"fsdp": 4}}))
     for k in ("aug_bc_pro", "aug_pc_pro", "aug_nl_pro"):
