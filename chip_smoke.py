@@ -94,7 +94,8 @@ float32 policy and, for 11-13, the bf16 one too:
    (24, 480, 640) on frames with 35% holes, an empty top band and empty
    columns, at a width that is no multiple of 128, at 5 x 5 and on an
    all-zero frame: without the bilateral filter equal, with it within
-   1e-5 m; and against the port's OpenCV pipeline on one frame within 1 mm;
+   1e-5 m; and against the port's OpenCV pipeline on one frame within 1 mm,
+   that OpenCV fill's host ms beside kernel 11's on the same frame;
    then every kernel of the path at the serving bucket of 8 (kernel 11's
    device time launch by launch on the serving frame, the 35%-hole frame
    and 24 such frames; kernel 8's query by SA stage beside the grouping);
@@ -172,6 +173,36 @@ then data parallelism on the one card (``istnet_tpu_torch/parallel``):
    unsplit B = 32 f32 forward within 2e-4, launches twice a forward's, and
    the eval kernels at the replicas' B = 16 against their plain versions.
 
+then the leftovers of the JAX package (their seconds printed together):
+
+28. trunks: the RGB encoder alone with each of resnet18/34/50/101/152
+   (``entry.build_encoder``) at B = 32, 192 x 192, f32 and bf16: the dense
+   forward and the sparse head at 1024 pixels, finite, the fold kernel
+   once a forward, and held against its plain version on each trunk's
+   own up_2 input at phase 3's bounds; card against CPU at B = 2 reported
+   against phase 5's
+   bounds, and both against the CPU's float64 forward (the card's error at
+   most twice the CPU's); ms, parameters, peak memory; a train-mode
+   forward and backward at B = 24 with finite gradients, ms and memory;
+29. pretrained backbone: a seeded torchvision-layout resnet18 dict through
+   ``cli/convert_torch_resnet.py``, then ``cli/train.py
+   --pretrained_backbone`` for 2 steps at full width over phase 15's kind
+   of trees, the trunk equal to the file before step 1, TRAIN_PER_STEP
+   launches a step; a resnet50-layout dict loaded into its encoder;
+30. data prep: ``cli/data_processing.py``'s four stages over
+   ``build_raw_prep_tree``, the RANSAC on the card, against a CPU run:
+   lists and Real / test labels equal, CAMERA-train within 1e-5; each
+   stage's seconds; the RANSAC's ms and peak memory on the card, and the
+   per-instance fit's ms on the card and the CPU, at 4,800, 20,000 and
+   260,000 points;
+31. vis: ``cli/test.py --vis --vis_axes --vis_labels`` on the card over
+   phase 14's kind of tree: a PNG a frame, each pixel-equal to
+   ``draw_detections`` of its result pickle;
+32. profiling: ``utils/profiling.trace`` around 3 B = 32 f32 forwards,
+   ``parse_trace`` / ``aggregate_ops``: the last forward's FPS, grouping,
+   FP and fold kernels as many as their wrappers' launches; ``timed``
+   against ``cuda_ms`` within the spread of 5 rounds.
+
 Before the last line come the card's name and power limit (first line) and a
 JSON object of per-kernel results with each kernel's bound; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -180,8 +211,8 @@ JSON object of per-kernel results with each kernel's bound; the last line is
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
-import gc
 import importlib.metadata
 import json
 import os
@@ -189,6 +220,8 @@ import re
 import subprocess
 import sys
 import time
+
+from istnet_tpu_torch.utils.profiling import cuda_ms, device_us, no_gc, timed
 
 # (N, npoint) of the 4 SA stages
 FPS_SHAPES = ((1024, 512), (512, 256), (256, 128), (128, 64))
@@ -334,36 +367,6 @@ def run(cmd: list[str]) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120,
                           check=True)
     return proc.stdout.strip()
-
-
-@contextlib.contextmanager
-def no_gc():
-    """A timed window without the cyclic garbage collector, as ``timeit``
-    keeps it: this script's own heap (some 10^5 tracked objects once the
-    profiler has run) makes a full collection a pause of 0.2-0.6 s, which
-    would land in whatever host-bound path is being timed."""
-    was_on = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if was_on:
-            gc.enable()
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with no_gc():
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def phase_device() -> dict:
@@ -1027,43 +1030,6 @@ def library_call(name: str, args):
         out = torch.zeros(b * m, c, device=grad.device)
         return lambda: out.zero_().index_add_(0, flat, rows)
     return None
-
-
-def device_us(fn, iters: int = 10) -> dict:
-    """Device microseconds a call by kernel name (torch.profiler's device
-    events): what the card spends, whatever the host takes to launch it.
-    The trace holds ``iters + 1`` calls; the profiler now and then loses
-    the first events after its start, so the first call is there to be
-    lost. A name's launches a call are its event count over the calls,
-    rounded (a lost or a stray event leaves it as it is); its last
-    ``iters`` rounds of events, in time order, are its launches of call
-    after call; each launch counts with its median over the calls, so that
-    one event with a broken time range does not move the reading. A name
-    with too few events for that reads NaN (PERF.md section 7)."""
-    import statistics
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters + 1):
-            fn()
-        torch.cuda.synchronize()
-    spans: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = re.search(r"[A-Za-z0-9_]*_kernel[A-Za-z0-9_]*|$",
-                             e.name).group(0) or "other"
-            spans.setdefault(name, []).append(
-                (e.time_range.start, e.time_range.end - e.time_range.start))
-    sums = {}
-    for name, events in spans.items():
-        per_call = max(1, round(len(events) / (iters + 1)))
-        us = [d for _, d in sorted(events)][-per_call * iters:]
-        sums[name] = float("nan") if len(us) < per_call * iters else sum(
-            statistics.median(us[k::per_call]) for k in range(per_call))
-    return sums
 
 
 def _launch_name(name: str) -> str:
@@ -1813,6 +1779,16 @@ def phase_depth_fill(device) -> dict:
         raise AssertionError(f"depth_fill vs the OpenCV pipeline: {err_mm} mm")
     print(f"[depth-fill] all-zero frame stays zero; a {h}x{w} frame against "
           f"the OpenCV pipeline: max abs err {err_mm:.3g} mm")
+    # the host fill that the host data path runs (and JAX's fallback for
+    # its native/ core) beside kernel 11 on the same frame
+    frame_m = torch.from_numpy(frame_mm)[None].to(device)
+    host_ms = timed(lambda: depth_utils.fill_missing(frame_mm, 1000.0, 1.0),
+                    iters=5, warmup=1) * 1e3
+    card_ms = cuda_ms(lambda: fill_missing(frame_m), iters=20)
+    print(f"[depth-fill] the OpenCV host fill of one {h}x{w} frame: "
+          f"{host_ms:.3f} ms on this host's CPU (os.cpu_count() "
+          f"{os.cpu_count()}); kernel 11's fill of it {card_ms:.3f} ms by "
+          f"CUDA events")
     # the call the serving path makes: phase 12's frame in metres (the time
     # depends on the share of holes: the dilations of the second half run
     # only on empty pixels, the medians and the bilateral only on valid ones)
@@ -3008,6 +2984,505 @@ def phase_eval_dp(model, device) -> dict:
     return counts
 
 
+# the trunk backends (phase 28): each one's encoder alone at the eval
+# forward's shapes (B=32, 192^2, 1024 chosen pixels) and a train-mode step
+# at the train batch; the card against the CPU at B=2 within phase 5's
+# bounds (f32 CPU_ATOL, bf16 BF16_CPU_ATOL)
+TRUNKS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
+TRUNK_PER_FORWARD = {"fold_upsample": 1}
+# the card's and the CPU's data preparation (phase 30): CAMERA-train labels,
+# both RANSACs converged to the all-inlier refit in float32
+PREP_RANSAC_TOL = 1e-5
+# points of the RANSAC's timed instances: the synthetic tree's largest
+# (80 x 60), then real NOCS masks, of a mid-sized and of the largest
+# instances (up to ~2.6e5 of a 480 x 640 frame)
+RANSAC_POINTS = (80 * 60, 20_000, 260_000)
+# the device kernels of each wrapper's launch in a torch.profiler trace
+# (phase 32): one a launch (the fold's GEMM; its interpolation follows it)
+TRACE_KERNELS = {"fps": r"\bfps(_stream)?_kernel\b",
+                 "ball_query_group": r"\bbq_group(_global)?_kernel\b",
+                 "fp_interpolate": r"\bfp_interp_kernel\b",
+                 "fold_upsample": r"\bgemm_(f32|bf16)_kernel\b"}
+PROFILED_FORWARDS = 3
+
+
+def phase_trunks(device) -> dict:
+    """Phase 28: every trunk backend's encoder (``entry.build_encoder``:
+    seeded weights, BN statistics of a seeded batch) at B=32, 192^2 under
+    float32 and bf16: the dense ``forward`` and ``sparse_points`` at 1024
+    chosen pixels, finite and of their shapes, the fold kernel launched once
+    a forward; the same encoder on the card against the port's CPU encoder
+    at B=2 (dense and sparse), reported against phase 5's bounds, and both
+    against the CPU's float64 forward: the card's error at most twice the
+    CPU's at the same policy (at random weights the deep trunks amplify
+    rounding, so float32 itself misses phase 5's bound there); ms by CUDA
+    events and peak memory above what was allocated before ("+"); one
+    train-mode forward and backward at B=TRAIN_BATCH with finite gradients,
+    its ms and peak memory. The fold kernel against its plain version on
+    the input up_2 takes in each trunk's B=32 forward, at phase 3's bounds,
+    and its times there. Returns, by policy, the launches, the fold's worst
+    error and its times (``time_kernels``'s, the mean over the trunks)."""
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.entry import build_encoder, make_inputs
+    from istnet_tpu_torch.nn.layers import cast
+    from istnet_tpu_torch.nn.resnet_psp import ModifiedResnet
+    inp = make_inputs(BATCH, seed=28, device=device)
+    rgb, choose = inp["rgb"], inp["choose"]
+    ref = make_inputs(2, seed=29, device="cpu")
+    launched = {dtype: dict.fromkeys(ops.launch_counts(), 0)
+                for dtype in ("float32", "bfloat16")}
+    fold_errs = dict.fromkeys(launched, 0.0)
+    fold_times = {dtype: [] for dtype in launched}
+    misses = []
+    for backend in TRUNKS:
+        t0 = time.perf_counter()
+        enc = build_encoder(backend, device, seed=28)
+        up_2_input = []
+        hook = enc.model.up_2.register_forward_pre_hook(
+            lambda mod, args: up_2_input.append(cast(args[0]))
+            if not up_2_input else None)
+        cpu = ModifiedResnet(backend)
+        cpu.load_state_dict({k: v.cpu() for k, v in enc.state_dict().items()})
+        cpu.eval()
+        with policy(torch.float64), torch.inference_mode():
+            ref64 = _encoder_outputs(copy.deepcopy(cpu).double(),
+                                     {"rgb": ref["rgb"].double(),
+                                      "choose": ref["choose"]}, "cpu")
+        n_params = sum(p.numel() for p in enc.parameters()) / 1e6
+        line = [f"[trunks] {backend}: {n_params:.2f}M parameters"]
+        for dtype, atol in ((torch.float32, CPU_ATOL),
+                            (torch.bfloat16, BF16_CPU_ATOL)):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            name = str(dtype).removeprefix("torch.")
+            with policy(dtype), torch.inference_mode():
+                torch.cuda.synchronize()
+                up_2_input.clear()
+                ops.reset_launch_counts()
+                dense = enc(rgb)
+                sparse = enc.sparse_points(rgb, choose)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                want = {k: 2 * TRUNK_PER_FORWARD.get(k, 0) for k in counts}
+                if counts != want:
+                    raise AssertionError(f"trunks {backend} {tag}: launches "
+                                         f"{counts}, expected {want}")
+                for k, v in counts.items():
+                    launched[name][k] += v
+                # the fold kernel on this trunk's own up_2 input
+                fold_case = {"fold_upsample": [(
+                    (up_2_input[0], enc.model.up_2.packed()), True)]}
+                fold_errs[name] = max(fold_errs[name], phase_kernels(
+                    fold_case, bf16=dtype == torch.bfloat16,
+                    tag=f"trunks {backend} ")["fold_upsample"])
+                fold_times[name].append(time_kernels(
+                    fold_case, f"trunks {backend} {tag} ")["fold_upsample"])
+                del fold_case
+                up_2_input.clear()
+                if (tuple(dense.shape) != (BATCH, 192, 192, 128)
+                        or tuple(sparse.shape) != (BATCH, 1024, 128)
+                        or not torch.isfinite(dense).all()
+                        or not torch.isfinite(sparse).all()):
+                    raise AssertionError(f"trunks {backend} {tag}: outputs "
+                                         f"{tuple(dense.shape)} / "
+                                         f"{tuple(sparse.shape)} or not finite")
+                del dense, sparse
+                card = _encoder_outputs(enc, ref, device)
+                host = _encoder_outputs(cpu, ref, "cpu")
+                errs = [(g - w).abs().max().item() for g, w in zip(card, host)]
+                # both against the CPU's float64 forward: the card's error
+                # within twice the CPU's own at this policy
+                card64, cpu64 = ([(o.double() - w).abs().max().item()
+                                  for o, w in zip(outs, ref64)]
+                                 for outs in (card, host))
+                if max(card64) > 2 * max(cpu64):
+                    raise AssertionError(
+                        f"trunks {backend} {tag}: the card {card64} from the "
+                        f"float64 forward, the CPU {cpu64}")
+                scale = max(w.abs().max().item() for w in ref64)
+                if max(errs) > atol:
+                    misses.append(f"{backend} {tag} {max(errs):.3g}")
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+                dense_ms = cuda_ms(lambda: enc(rgb), iters=5)
+                sparse_ms = cuda_ms(lambda: enc.sparse_points(rgb, choose),
+                                    iters=5)
+                peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+            line.append(
+                f"{tag}: dense {dense_ms:.3f} ms, sparse {sparse_ms:.3f} ms "
+                f"a B={BATCH} forward, peak +{peak:.2f} GiB; B=2 card vs CPU "
+                f"max abs err dense {errs[0]:.3g}, sparse {errs[1]:.3g} "
+                f"(max |out| {scale:.3g}; phase 5's bound {atol:g}: "
+                f"{'within' if max(errs) <= atol else 'MISS'}); from the CPU "
+                f"float64 forward: card {max(card64):.3g}, CPU "
+                f"{max(cpu64):.3g}")
+        hook.remove()
+        with policy(torch.float32):
+            enc.train()
+            gen = torch.Generator(device=device).manual_seed(28)
+            x = rgb[:TRAIN_BATCH].clone()
+
+            def step():
+                enc.zero_grad(set_to_none=True)
+                enc(x, gen).float().square().mean().backward()
+
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            step()
+            grads = [p.grad for p in enc.parameters() if p.grad is not None]
+            if not grads or not all(torch.isfinite(g).all() for g in grads):
+                raise AssertionError(f"trunks {backend}: gradients missing "
+                                     f"or not finite")
+            train_ms = cuda_ms(step, iters=3, warmup=1)
+            train_peak = (torch.cuda.max_memory_allocated(device)
+                          - base) / 2 ** 30
+            enc.zero_grad(set_to_none=True)
+            enc.eval()
+        line.append(f"train-mode forward + backward at B={TRAIN_BATCH}: "
+                    f"{train_ms:.3f} ms, gradients finite ({len(grads)} "
+                    f"tensors), peak +{train_peak:.2f} GiB; phase "
+                    f"{time.perf_counter() - t0:.1f} s")
+        print("; ".join(line))
+        del enc, cpu
+        torch.cuda.empty_cache()
+    print(f"[trunks] card vs CPU beyond phase 5's bounds (reported, not "
+          f"widened): {', '.join(misses) if misses else 'none'}")
+    times = {}
+    for name, rows in fold_times.items():
+        # (kernel, plain, bound ms; what bounds it; library ms, None here)
+        k_ms, p_ms, least = (sum(r[i] for r in rows) / len(rows)
+                             for i in range(3))
+        times[name] = {"fold_upsample": (k_ms, p_ms, least, *rows[0][3:])}
+    return {name: (launched[name], {"fold_upsample": fold_errs[name]},
+                   times[name]) for name in launched}
+
+
+def _encoder_outputs(enc, inputs, device):
+    """The dense map and the sparse head of ``enc`` on ``inputs`` moved to
+    ``device``, as float32 (float64 from a float64 model) CPU tensors."""
+    import torch
+    rgb, choose = inputs["rgb"].to(device), inputs["choose"].to(device)
+    return [o.cpu() if o.dtype == torch.float64 else o.float().cpu()
+            for o in (enc(rgb), enc.sparse_points(rgb, choose))]
+
+
+def phase_pretrained_backbone(device) -> None:
+    """Phase 29: a torchvision-layout resnet18 state dict made from a seed
+    through ``cli/convert_torch_resnet.py`` to a ``.npz``, then
+    ``cli/train.py --pretrained_backbone`` on the default config over
+    phase 15's kind of trees for 1 epoch of 2 steps: the trunk equal to the
+    file before step 1, losses finite, TRAIN_PER_STEP launches a step; a
+    resnet50-layout dict converts and loads into
+    ``ModifiedResnet("resnet50")`` on the card, whose forward is finite."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from istnet_tpu_torch.cli import convert_torch_resnet as convert
+    from istnet_tpu_torch.data import synthetic
+    from istnet_tpu_torch.entry import random_resnet_state_dict
+    from istnet_tpu_torch.nn.resnet_psp import ModifiedResnet
+    from istnet_tpu_torch.train.solver import Solver
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        synthetic.build_train_trees(os.path.join(root, "data"), LOOP_SCENES)
+        files = {}
+        for seed, backend in enumerate(("resnet18", "resnet50")):
+            pth = os.path.join(root, f"{backend}.pth")
+            torch.save(random_resnet_state_dict(backend, 29 + seed), pth)
+            files[backend] = pth, convert.main(
+                ["--torch_ckpt", pth, "--out",
+                 os.path.join(root, f"{backend}.npz")])
+        want = convert.torch_sd_to_numpy(files["resnet18"][0])
+        seen = {}
+        solve = Solver.solve
+
+        def checked(self):
+            sd = self.model.state_dict()
+            seen.update({k: sd["rgb_cam_extractor.model.feats." + k].cpu()
+                         .numpy().copy() for k in want})
+            return solve(self)
+
+        cfg = _config_copy(root, "ist_net_default.yaml", max_epoch=1,
+                           num_mini_batch_per_epoch=2)
+        Solver.solve = checked
+        try:
+            run_loop("pretrained backbone",
+                     ["--config", cfg, "--data_dir", os.path.join(root, "data"),
+                      "--log_dir", os.path.join(root, "log"),
+                      "--pretrained_backbone", files["resnet18"][1]],
+                     device, TRAIN_PER_STEP)
+        finally:
+            Solver.solve = solve
+        off = [k for k, w in want.items() if not k.endswith(
+            "num_batches_tracked") and not np.array_equal(seen[k], w)]
+        if set(seen) != set(want) or off:
+            raise AssertionError(f"pretrained backbone: the trunk before "
+                                 f"step 1 is not the file's: {off[:5]}")
+        enc = ModifiedResnet("resnet50")
+        written = convert.load_pretrained_backbone(enc, files["resnet50"][1],
+                                                   encoder="")
+        enc = enc.to(device).eval()
+        want50 = convert.torch_sd_to_numpy(files["resnet50"][0])
+        got50 = enc.state_dict()
+        off = [k for k, w in want50.items() if not k.endswith(
+            "num_batches_tracked") and not np.array_equal(
+                got50["model.feats." + k].cpu().numpy(), w)]
+        with torch.inference_mode(), policy(torch.float32):
+            out = enc(torch.rand(2, 192, 192, 3, device=device))
+        if off or not torch.isfinite(out).all():
+            raise AssertionError(f"pretrained backbone: resnet50 off {off[:5]}"
+                                 f" or its forward not finite")
+        print(f"[pretrained backbone] the resnet18 trunk equals the .npz "
+              f"before step 1 ({len(want)} arrays); a resnet50-layout dict "
+              f"converted and loaded into ModifiedResnet('resnet50') "
+              f"({len(written)} keys), its forward on the card finite; "
+              f"phase {time.perf_counter() - t0:.1f} s")
+
+
+def _labels(path):
+    import pickle
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def phase_data_prep(device) -> None:
+    """Phase 30: ``data/synthetic.py::build_raw_prep_tree`` in a temporary
+    directory, the four stages of ``cli/data_processing.py`` with the
+    RANSAC on the card and, on a copy, on the CPU: image lists equal as
+    text, Real-train and test labels equal, CAMERA-train labels within
+    PREP_RANSAC_TOL (other draws, the same all-inlier refit); each stage's
+    wall time; at each of RANSAC_POINTS, the RANSAC's ms and peak memory
+    on the card and ``estimate_similarity_transform``'s ms on the card
+    and on the CPU."""
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from istnet_tpu_torch.cli import data_processing as dp
+    from istnet_tpu_torch.data import synthetic
+    from istnet_tpu_torch.ops.umeyama import (
+        estimate_similarity_transform, ransac_similarity)
+    with tempfile.TemporaryDirectory() as root:
+        raw = os.path.join(root, "raw")
+        synthetic.build_raw_prep_tree(raw)
+        runs = {}
+        for tag, where in (("card", str(device)), ("cpu", "cpu")):
+            tree = os.path.join(root, tag)
+            shutil.copytree(raw, tree)
+            stages = {}
+            for name, fn in (
+                    ("create_img_list", lambda: dp.create_img_list(tree)),
+                    ("annotate_camera_train",
+                     lambda: dp.annotate_camera_train(tree, where)),
+                    ("annotate_real_train", lambda: dp.annotate_real_train(tree)),
+                    ("annotate_test_data", lambda: dp.annotate_test_data(tree))):
+                t0 = time.perf_counter()
+                fn()
+                stages[name] = time.perf_counter() - t0
+            runs[tag] = tree, stages
+        (card, card_s), (cpu, cpu_s) = runs.values()
+        for rel in ("CAMERA/train_list_all.txt", "CAMERA/val_list_all.txt",
+                    "Real/train_list_all.txt", "Real/test_list_all.txt",
+                    "CAMERA/train_list.txt", "Real/train_list.txt",
+                    "CAMERA/val_list.txt", "Real/test_list.txt"):
+            with open(os.path.join(card, rel)) as a, \
+                    open(os.path.join(cpu, rel)) as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"data prep: {rel} differs")
+        worst = 0.0
+        labels = sorted(glob.glob(os.path.join(card, "**", "*_label.pkl"),
+                                  recursive=True))
+        for path in labels:
+            rel = os.path.relpath(path, card)
+            a, b = _labels(path), _labels(os.path.join(cpu, rel))
+            if set(a) != set(b):
+                raise AssertionError(f"data prep: {rel} keys differ")
+            for key, bv in b.items():
+                if rel.startswith("CAMERA/train") and key in (
+                        "scales", "rotations", "translations"):
+                    err = float(np.abs(a[key] - bv).max())
+                    worst = max(worst, err)
+                    if err > PREP_RANSAC_TOL:
+                        raise AssertionError(f"data prep: {rel} {key} card "
+                                             f"vs CPU {err}")
+                elif not np.array_equal(np.asarray(a[key]), np.asarray(bv)):
+                    raise AssertionError(f"data prep: {rel} {key} differs")
+        fmt = ", ".join
+        print(f"[data prep] {len(labels)} label files; lists equal, Real and "
+              f"test labels equal, CAMERA-train card vs CPU max abs err "
+              f"{worst:.3g} (bound {PREP_RANSAC_TOL:g}); stages on "
+              f"{device}: {fmt(f'{k} {v:.2f} s' for k, v in card_s.items())}; "
+              f"on the CPU: {fmt(f'{k} {v:.2f} s' for k, v in cpu_s.items())}")
+    # the RANSAC alone, an instance of the synthetic tree's size and of
+    # real NOCS mask sizes: on the card by CUDA events with its peak memory,
+    # and the stage's per-instance fit (numpy in and out) on the card and
+    # on the CPU, each after a warmup
+    for n in RANSAC_POINTS:
+        src = np.random.RandomState(30).rand(n, 3).astype(np.float32)
+        tgt = src * np.float32(400.0) + np.float32(800.0)
+        s_t, t_t = (torch.from_numpy(a).to(device) for a in (src, tgt))
+        gen = torch.Generator(device=device).manual_seed(0)
+        ransac_similarity(s_t, t_t, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        ransac_ms = cuda_ms(lambda: ransac_similarity(s_t, t_t, gen), iters=5)
+        peak = (torch.cuda.max_memory_allocated(device) - base) / 2 ** 20
+        del s_t, t_t
+        fits, per_call = {}, {}
+        for where in (str(device), "cpu"):
+            fits[where] = estimate_similarity_transform(src, tgt,
+                                                        device=where)
+            per_call[where] = timed(estimate_similarity_transform, src, tgt,
+                                    iters=3, warmup=0, device=where) * 1e3
+            if fits[where][0] is None or not np.isfinite(fits[where][3]).all():
+                raise AssertionError(f"data prep: the RANSAC of {n} points "
+                                     f"on {where} gave no fit")
+        gap = float(np.abs(fits[str(device)][3] - fits["cpu"][3]).max())
+        print(f"[data prep] RANSAC (128 hypotheses) of a {n}-point instance: "
+              f"{ransac_ms:.3f} ms on the card, peak +{peak:.1f} MiB; "
+              f"estimate_similarity_transform {per_call[str(device)]:.3f} ms "
+              f"on the card, {per_call['cpu']:.3f} ms on the CPU "
+              f"({torch.get_num_threads()} threads); card vs CPU transform "
+              f"max abs diff {gap:.3g}")
+        torch.cuda.empty_cache()
+
+
+def phase_vis(model, device) -> None:
+    """Phase 31: ``cli/test.py --vis --vis_axes --vis_labels`` on the card
+    over phase 14's kind of tree, from the f32 model's weights: one PNG a
+    non-empty frame (at most 50), each pixel-equal to ``draw_detections``
+    run on the CPU from the same result pickle."""
+    import glob
+    import logging
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from istnet_tpu_torch.cli import test as cli_test
+    from istnet_tpu_torch.data import synthetic
+    from istnet_tpu_torch.data.dataset import REAL_INTRINSICS
+    from istnet_tpu_torch.eval.vis import draw_detections
+    quiet = logging.getLogger("istnet")
+    with tempfile.TemporaryDirectory() as root:
+        synthetic.build_test_tree(root, LOOP_FRAMES, LOOP_INSTANCES)
+        weights = os.path.join(root, "w.pth")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   weights)
+        cfg = _config_copy(root, "ist_net_default.yaml")
+        log_dir = os.path.join(root, "log")
+        t0 = time.perf_counter()
+        level = quiet.level
+        quiet.setLevel(logging.ERROR)
+        try:
+            iou, pose = cli_test.main(["--config", cfg, "--data_dir", root,
+                                       "--torch_checkpoint", weights,
+                                       "--log_dir", log_dir, "--device",
+                                       str(device), "--vis", "--vis_axes",
+                                       "--vis_labels"])
+        finally:
+            quiet.setLevel(level)
+        seconds = time.perf_counter() - t0
+        if not (np.isfinite(iou).all() and np.isfinite(pose).all()):
+            raise AssertionError("vis: non-finite APs")
+        save = os.path.join(log_dir, "eval_epoch30")
+        pkls = sorted(glob.glob(os.path.join(save, "*.pkl")))
+        fx, fy, cx, cy = REAL_INTRINSICS
+        k = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
+        drawn = 0
+        for i, path in enumerate(pkls[:50]):
+            r = _labels(path)
+            png = os.path.join(save, "vis", f"real_{i}_pred.png")
+            # results_test_<scene>_<stem>.pkl; no frame of the tree is empty
+            scene, stem = os.path.basename(path)[len("results_test_"):-4
+                                                 ].rsplit("_", 1)
+            img = cv2.imread(os.path.join(root, "data", "Real", "test",
+                                          scene, f"{stem}_color.png"))
+            want = draw_detections(img, os.path.join(root, "cpu_vis"), "real",
+                                   i, k, r["pred_RTs"], r["pred_scales"],
+                                   r["pred_class_ids"], r["gt_RTs"],
+                                   r["gt_scales"], r["gt_class_ids"],
+                                   draw_axes=True, draw_labels=True)
+            if not np.array_equal(cv2.imread(png), want):
+                raise AssertionError(f"vis: {png} differs from the CPU's")
+            drawn += 1
+        pngs = os.listdir(os.path.join(save, "vis"))
+        if not drawn == len(pngs) == min(50, LOOP_FRAMES) == len(pkls):
+            raise AssertionError(f"vis: {len(pngs)} PNGs over {len(pkls)} "
+                                 f"frames")
+    print(f"[vis] cli/test.py --vis --vis_axes --vis_labels on {device}: "
+          f"{drawn} PNGs over {len(pkls)} frames, each pixel-equal to the "
+          f"CPU's draw_detections of its result pickle; finite APs; "
+          f"{seconds:.1f} s with the loop")
+
+
+def phase_profiling(model, device) -> None:
+    """Phase 32: ``utils/profiling.trace`` around PROFILED_FORWARDS B=32 f32
+    eval forwards (each in a ``record_function``), then ``parse_trace``
+    and ``aggregate_ops``: in the last forward, each kernel's device rows
+    (``TRACE_KERNELS``) as many as its wrapper's launches a forward; then
+    ``timed`` against ``cuda_ms`` on the forward, five rounds each."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.entry import make_inputs
+    from istnet_tpu_torch.utils import profiling
+    inp = make_inputs(BATCH, seed=32, device=device)
+    with torch.inference_mode():
+        model(inp)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            ops.reset_launch_counts()
+            with profiling.trace(d):
+                for i in range(PROFILED_FORWARDS):
+                    with torch.profiler.record_function(f"forward {i}"):
+                        model(inp)
+                    torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            rows = profiling.parse_trace(d)
+    last = f"forward {PROFILED_FORWARDS - 1}"
+    mine = [r for r in rows if r["scope"] == last]
+    seen = {name: sum(bool(re.search(pattern, r["name"])) for r in mine)
+            for name, pattern in TRACE_KERNELS.items()}
+    want = {name: counts[name] // PROFILED_FORWARDS for name in TRACE_KERNELS}
+    if seen != want or want != {k: F32_PER_FORWARD[k] for k in want}:
+        raise AssertionError(f"profiling: kernels in the trace {seen}, "
+                             f"wrapper launches a forward {want}")
+    top = profiling.aggregate_ops(rows, key="op", top=6,
+                                  calls=PROFILED_FORWARDS)
+    print(f"[profiling] {len(rows)} device rows over {PROFILED_FORWARDS} "
+          f"forwards; the last forward's port kernels in the trace {seen}, "
+          f"as their wrappers' launches; device us a forward by op, top 6: "
+          + ", ".join(f"{a['key'][:40]} {a['dur_us']} ({a['n']})"
+                      for a in top))
+    with torch.inference_mode():
+        ev, wall = [], []
+        for _ in range(5):
+            ev.append(cuda_ms(lambda: model(inp), iters=5))
+            wall.append(profiling.timed(model, inp, iters=5) * 1e3)
+    spread = max(max(ev) - min(ev), max(wall) - min(wall))
+    gap = statistics.median(wall) - statistics.median(ev)
+    print(f"[profiling] B={BATCH} forward: timed {statistics.median(wall):.3f}"
+          f" ms (min {min(wall):.3f}, max {max(wall):.3f}), cuda_ms "
+          f"{statistics.median(ev):.3f} (min {min(ev):.3f}, max "
+          f"{max(ev):.3f}); medians {gap:+.3f} ms apart, spread "
+          f"{spread:.3f} ms")
+    if abs(gap) > spread:
+        raise AssertionError(f"profiling: timed and cuda_ms {gap:.3f} ms "
+                             f"apart, beyond the spread {spread:.3f}")
+
+
 def phase_training(device, bare: float):
     """Phases 15-18, 22 and 26 in one temporary directory: the synthetic
     train trees (LOOP_SCENES scenes each) and a test tree, then the loop,
@@ -3218,6 +3693,30 @@ def main() -> int:
     record("ddp world 1", "float32", errs_t, ddp_counts, times_t,
            list(train_cases))
     record("eval dp", "float32", errs_dp, dp_counts, times_dp, list(cases_dp))
+
+    # phases 28-32: the trunk backends (the fold at the eval shape of
+    # phases 3 and 6 under each policy), the ImageNet trunk, data
+    # preparation, --vis and the profiling helpers
+    seconds = {}
+
+    def clocked(label, phase, *args):
+        t0 = time.perf_counter()
+        with policy(torch.float32):
+            out = phase(*args)
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    trunk_runs = clocked("28 trunks", phase_trunks, device)
+    clocked("29 pretrained backbone", phase_pretrained_backbone, device)
+    clocked("30 data prep", phase_data_prep, device)
+    clocked("31 vis", phase_vis, model, device)
+    clocked("32 profiling", phase_profiling, model, device)
+    print("[phases 28-32] " + ", ".join(f"{k} {v:.1f} s"
+                                         for k, v in seconds.items())
+          + f"; {sum(seconds.values()):.1f} s in all")
+    for path, dtype in (("trunks", "float32"), ("trunks bf16", "bfloat16")):
+        counts_k, errs_k, times_k = trunk_runs[dtype]
+        record(path, dtype, errs_k, counts_k, times_k, ["fold_upsample"])
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device_info}))

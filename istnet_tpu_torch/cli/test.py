@@ -4,7 +4,7 @@
 ``python -m istnet_tpu_torch.cli.test --config config/ist_net_default.yaml
   --data_dir data/NOCS --torch_checkpoint ist_net_default.pth
   [--device_preprocess] [--eval_batch 64] [--devices N] [--only_eval]
-  [--device cpu]``
+  [--vis [--vis_axes] [--vis_labels]] [--device cpu]``
 
 Weights come from the port's own checkpoint of ``--test_epoch`` under
 ``log_dir/ckpt`` (``cli/train.py`` writes it), or from
@@ -18,6 +18,9 @@ The model runs on the card unless ``--device cpu`` is given, under the
 (N clamped to the cards, with a warning), or N replicas on the CPU with
 ``--device cpu`` (JAX's virtual CPU devices); it implies batched inference,
 even at N = 1, at ``--eval_batch`` (default 64), which must divide by N.
+
+``--vis`` draws the first 50 non-empty frames' boxes after the loop
+(``eval/vis.py``) into ``<log_dir>/eval_epoch<E>/vis``.
 """
 
 from __future__ import annotations
@@ -25,12 +28,6 @@ from __future__ import annotations
 import argparse
 import os
 import time
-
-_NOT_YET = {
-    "vis": "--vis (eval/vis.py) is not ported yet: ROADMAP.md queue 1, "
-           "item 9",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="IST-Net testing (PyTorch port)")
@@ -57,9 +54,12 @@ def parse_args(argv=None):
                         "(instance batch split over replicas); implies "
                         "--eval_batch (default 64), which must divide by N")
     p.add_argument("--vis", action="store_true",
-                   help="draw detection boxes (not ported yet)")
-    p.add_argument("--vis_axes", action="store_true")
-    p.add_argument("--vis_labels", action="store_true")
+                   help="draw the first 50 frames' boxes into "
+                        "<save_path>/vis")
+    p.add_argument("--vis_axes", action="store_true",
+                   help="axes-arrow box style (vis_utils.py:73-100)")
+    p.add_argument("--vis_labels", action="store_true",
+                   help="class-name label boxes (vis_utils.py:103-139)")
     p.add_argument("--log_dir", default=None)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
@@ -68,8 +68,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.vis or args.vis_axes or args.vis_labels:
-        raise SystemExit(_NOT_YET["vis"])
 
     import torch
 
@@ -163,8 +161,38 @@ def main(argv=None):
                                             batch_size=eval_batch)
             else:
                 test_loop.test_func(forward, dataset, save_path)
+        if args.vis:
+            draw(dataset, save_path, args.vis_axes, args.vis_labels)
 
     return evaluate(save_path, logger=logger)
+
+
+def draw(dataset, save_path: str, axes: bool, labels: bool) -> None:
+    """The first 50 frames' predicted (red) and ground-truth (green) boxes
+    over the image, from the result pkls the loop wrote, into
+    ``<save_path>/vis`` (``istnet_tpu/cli/test.py:168-189``); empty frames
+    are skipped."""
+    import pickle
+
+    import numpy as np
+
+    from istnet_tpu_torch.data.dataset import REAL_INTRINSICS
+    from istnet_tpu_torch.eval.vis import draw_detections
+    fx, fy, cx, cy = REAL_INTRINSICS
+    k = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
+    vis_dir = os.path.join(save_path, "vis")
+    for i in range(min(len(dataset), 50)):
+        data = dataset[i]
+        if data.get("empty"):
+            continue
+        with open(os.path.join(save_path, os.path.basename(
+                dataset.result_pkl_list[i])), "rb") as f:
+            result = pickle.load(f)
+        draw_detections(data["ori_img"].copy(), vis_dir, "real", i, k,
+                        result["pred_RTs"], result["pred_scales"],
+                        result["pred_class_ids"], result["gt_RTs"],
+                        result["gt_scales"], result["gt_class_ids"],
+                        draw_axes=axes, draw_labels=labels)
 
 
 def dp_devices(n: int, device, logger) -> list:

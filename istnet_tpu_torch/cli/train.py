@@ -2,14 +2,15 @@
 
 ``python -m istnet_tpu_torch.cli.train --config config/ist_net_default.yaml
   [--data_dir data/NOCS] [--log_dir DIR] [--checkpoint_epoch E]
-  [--devices N] [--device cpu]``
+  [--pretrained_backbone trunk.npz] [--devices N] [--device cpu]``
 
 Wires config -> model (``model_arch``: ``ist_net`` or ``posenet_gt``) ->
 the CAMERA and Real datasets (seeds ``rd_seed`` and ``rd_seed + 1``; raw
 frames under ``use_device_preprocess``) -> their loaders -> ``Solver``, on
 the card unless ``--device cpu`` is given, under the config's
 ``compute_dtype`` (float32, or bfloat16 as ``config/ist_net_2048pt_dp.yaml``
-trains).
+trains). ``--pretrained_backbone`` starts the RGB trunk from ImageNet
+weights (a ``.npz`` of ``cli/convert_torch_resnet.py``).
 The two-phase recipe's second phase (``freeze_world_enhancer`` with
 ``world_enhancer_weights``) first moves PoseNetGT's world extractor in;
 ``--checkpoint_epoch`` resumes from ``log_dir/ckpt/<epoch>``: model,
@@ -43,11 +44,8 @@ import os
 import sys
 import time
 
-_NOT_YET = {
-    "pretrained_backbone": "--pretrained_backbone (ImageNet weights for the "
-                           "RGB trunk) is not ported yet: ROADMAP.md queue "
-                           "1, item 9",
-}
+# the RGB encoder whose trunk --pretrained_backbone fills, by model_arch
+ENCODERS = {"ist_net": "rgb_cam_extractor", "posenet_gt": "rgb_extractor"}
 
 
 def parse_args(argv=None):
@@ -60,7 +58,8 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint_epoch", type=int, default=-1,
                    help="resume from this epoch's checkpoint (-1: fresh)")
     p.add_argument("--pretrained_backbone", default=None,
-                   help="ImageNet weights for the RGB trunk (not ported yet)")
+                   help="ImageNet weights for the RGB trunk: a .npz of "
+                        "cli/convert_torch_resnet.py (either framework's)")
     p.add_argument("--log_dir", default=None)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
@@ -117,8 +116,6 @@ def main(argv=None):
     N`` spawned the ranks."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    if args.pretrained_backbone:
-        raise SystemExit(_NOT_YET["pretrained_backbone"])
 
     import torch
 
@@ -209,6 +206,15 @@ def train(args, device):
     model = build_model(cfg, train_cfg)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"#parameters: {n_params / 1e6:.2f}M")
+
+    # before the transplant, the optimizer and DDP's first broadcast
+    # (istnet_tpu/cli/train.py:123-129)
+    if args.pretrained_backbone:
+        from istnet_tpu_torch.cli.convert_torch_resnet import (
+            load_pretrained_backbone)
+        load_pretrained_backbone(model, args.pretrained_backbone,
+                                 ENCODERS[train_cfg.model_arch])
+        logger.info(f"loaded ImageNet backbone from {args.pretrained_backbone}")
 
     # two-phase recipe: transplant + freeze the world enhancer
     if train_cfg.freeze_world_enhancer and cfg.get("world_enhancer_weights"):

@@ -5,8 +5,9 @@ The port's submodules carry the reference torch key names, so a reference
 model-zoo ``.pth`` state dict loads into the port directly
 (``load_torch_state_dict``). ``state_dict_from_jax`` maps the
 ``{"params", "batch_stats"}`` trees of the JAX ``ISTNet`` or ``PoseNetGT``
-(resnet18 trunk) onto those keys: the port's own table of flax paths, written out below, with
-the layouts turned back (HWIO conv kernels to OIHW, ``(I, O)`` dense kernels
+(resnet18 trunk), or of a ``ModifiedResnet`` of any trunk, onto those
+keys: the port's own table of flax paths, written out below, with the
+layouts turned back (HWIO conv kernels to OIHW, ``(I, O)`` dense kernels
 to ``(O, I[, 1[, 1]])``). Three things have no one-to-one leaf:
 
 - the JAX SharedMLP's dense bias, which torch's bias-free conv lacks, folds
@@ -34,6 +35,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from istnet_tpu_torch.nn.resnet_psp import RESNET_LAYERS, BasicBlock, Bottleneck
+
 
 class ConversionError(ValueError):
     pass
@@ -59,7 +62,7 @@ _LAYOUT = {
 }
 
 
-class _Bridge:
+class Bridge:
     """Collects torch keys from flax leaves and accounts for every leaf."""
 
     def __init__(self, trees: Mapping):
@@ -104,25 +107,60 @@ class _Bridge:
         return sorted(f"{c}/{p}" for c, p in have - self.used)
 
 
-def _encoder(b: _Bridge, name: str) -> None:
-    """``ModifiedResnet`` (torch ``<name>.model.*``), resnet18 trunk."""
-    t, f = f"{name}.model.", f"{name}/"
-    trunk_t, trunk_f = t + "feats.", f + "ResNet18Trunk_0/"
+def _trunk_layout(b: Bridge, trunk_f: str):
+    """The block class and stage depths of the flax trunk under
+    ``trunk_f``: the factory entry whose block type and block count it
+    holds (``BasicBlock_k`` or ``Bottleneck_k``, numbered across stages)."""
+    for block in (BasicBlock, Bottleneck):
+        kind = f"{trunk_f}{block.__name__}_"
+        n = len({p[len(kind):].split("/")[0] for p in b.params
+                 if p.startswith(kind)})
+        if not n:
+            continue
+        for depths in (d for blk, d in RESNET_LAYERS.values()
+                       if blk is block and sum(d) == n):
+            return block, depths
+        raise ConversionError(f"{n} {block.__name__} blocks under "
+                              f"{trunk_f}: no factory backend has them")
+    raise ConversionError(f"no trunk blocks under {trunk_f}")
+
+
+def trunk(b: Bridge, trunk_t: str, trunk_f: str) -> int:
+    """The trunk's convs and BNs from the flax ``ResNet18Trunk`` under
+    ``trunk_f`` to the torch keys under ``trunk_t``, any factory backend:
+    its blocks are ``<Block>_k`` in stage order, each ``_RConv_i`` /
+    ``BatchNorm_i`` for its convs and ``_RConv_n`` / ``BatchNorm_n`` (n =
+    its conv count) for a downsample
+    (``istnet_tpu/cli/convert_torch_resnet.py:35-87``). Returns the width
+    of its output."""
     b.conv(trunk_t + "conv1", trunk_f + "_RConv_0", bias=False)
     b.bn(trunk_t + "bn1", trunk_f + "BatchNorm_0")
-    for layer in range(4):
-        for sub in range(2):
+    block, depths = _trunk_layout(b, trunk_f)
+    n_convs = 3 if block is Bottleneck else 2
+    k = 0
+    for layer, depth in enumerate(depths):
+        for sub in range(depth):
             bt = f"{trunk_t}layer{layer + 1}.{sub}."
-            bf = f"{trunk_f}BasicBlock_{2 * layer + sub}/"
-            for ci in range(2):
+            bf = f"{trunk_f}{block.__name__}_{k}/"
+            k += 1
+            for ci in range(n_convs):
                 b.conv(f"{bt}conv{ci + 1}", f"{bf}_RConv_{ci}", bias=False)
                 b.bn(f"{bt}bn{ci + 1}", f"{bf}BatchNorm_{ci}")
-            if f"{bf}_RConv_2/Conv_0/kernel" in b.params:
-                b.conv(bt + "downsample.0", bf + "_RConv_2", bias=False)
-                b.bn(bt + "downsample.1", bf + "BatchNorm_2")
+            if f"{bf}_RConv_{n_convs}/Conv_0/kernel" in b.params:
+                b.conv(bt + "downsample.0", f"{bf}_RConv_{n_convs}",
+                       bias=False)
+                b.bn(bt + "downsample.1", f"{bf}BatchNorm_{n_convs}")
+    return 512 * block.expansion
+
+
+def _encoder(b: Bridge, name: str) -> None:
+    """``ModifiedResnet`` (torch ``<name>.model.*``; ``name`` empty for an
+    encoder on its own), any factory trunk."""
+    t, f = (f"{name}.model.", f"{name}/") if name else ("model.", "")
+    width = trunk(b, t + "feats.", f + "ResNet18Trunk_0/")
     # the reference trunk's fc is never called; the flax side carries none
-    b.out[trunk_t + "fc.weight"] = np.zeros((1000, 512), np.float32)
-    b.out[trunk_t + "fc.bias"] = np.zeros((1000,), np.float32)
+    b.out[t + "feats.fc.weight"] = np.zeros((1000, width), np.float32)
+    b.out[t + "feats.fc.bias"] = np.zeros((1000,), np.float32)
 
     for i in range(4):
         b.conv(f"{t}psp.stages.{i}.1", f"{f}PSPModule_0/TorchConv_{i}",
@@ -141,7 +179,7 @@ def _encoder(b: _Bridge, name: str) -> None:
     b.put(t + "final.2.weight", f + "final_prelu/alpha", "vec")
 
 
-def _shared_mlp(b: _Bridge, key: str, path: str, nlayers: int) -> None:
+def _shared_mlp(b: Bridge, key: str, path: str, nlayers: int) -> None:
     for k in range(nlayers):
         dense = f"{path}/TorchDense_{k}/Dense_0"
         b.put(f"{key}.layer{k}.conv.weight", dense + "/kernel", "conv1x1")
@@ -149,7 +187,7 @@ def _shared_mlp(b: _Bridge, key: str, path: str, nlayers: int) -> None:
              dense_bias=dense + "/bias")
 
 
-def _pointnet2(b: _Bridge, key: str, path: str) -> None:
+def _pointnet2(b: Bridge, key: str, path: str) -> None:
     for i in range(4):
         for j in range(2):
             _shared_mlp(b, f"{key}.SA_modules.{i}.mlps.{j}",
@@ -160,12 +198,12 @@ def _pointnet2(b: _Bridge, key: str, path: str) -> None:
                     f"{path}/PointnetFPModule_{3 - i}/SharedMLP_0", 2)
 
 
-def _seq_mlp(b: _Bridge, key: str, path: str, torch_idx=(0, 2)) -> None:
+def _seq_mlp(b: Bridge, key: str, path: str, torch_idx=(0, 2)) -> None:
     for j, i in enumerate(torch_idx):
         b.dense(f"{key}.{i}", f"{path}/TorchDense_{j}", "conv1d")
 
 
-def _pose_heads(b: _Bridge, key: str, path: str) -> None:
+def _pose_heads(b: Bridge, key: str, path: str) -> None:
     heads = ("rotation_estimator", "translation_estimator", "size_estimator")
     for h, name in enumerate(heads):
         for j, i in enumerate((0, 2)):
@@ -174,7 +212,7 @@ def _pose_heads(b: _Bridge, key: str, path: str) -> None:
         b.dense(f"{key}.{name}.4", f"{path}/TorchDense_{h}", "linear")
 
 
-def _estimator(b: _Bridge, key: str, path: str, mlps) -> None:
+def _estimator(b: Bridge, key: str, path: str, mlps) -> None:
     for k, name in enumerate(mlps):
         _seq_mlp(b, f"{key}.{name}", f"{path}/MLP_{k}")
     _pose_heads(b, key, path + "/PoseHeads_0")
@@ -184,7 +222,7 @@ _HEAVY = ("pts_mlp1", "pts_mlp2", "pose_mlp1", "pose_mlp2")
 _LIGHT = ("pts_mlp", "pose_mlp1", "pose_mlp2")
 
 
-def _ist_net(b: _Bridge, variables: Mapping) -> None:
+def _ist_net(b: Bridge, variables: Mapping) -> None:
     _encoder(b, "rgb_cam_extractor")
     _pointnet2(b, "pts_cam_extractor", "pts_cam_extractor")
     t, f = "implicit_transform.feature_refine", \
@@ -202,25 +240,27 @@ def _ist_net(b: _Bridge, variables: Mapping) -> None:
                    "world_enhancer/pose_estimator", _HEAVY)
 
 
-def _posenet_gt(b: _Bridge, variables: Mapping) -> None:
+def _posenet_gt(b: Bridge, variables: Mapping) -> None:
     _encoder(b, "rgb_extractor")
     _pointnet2(b, "pts_extractor", "pts_extractor")
     _pointnet2(b, "pts_gt_extractor", "pts_gt_extractor")
     _estimator(b, "pose_estimator_aux", "pose_estimator_aux", _HEAVY)
 
 
-_MODELS = {"ist_net": _ist_net, "posenet_gt": _posenet_gt}
+_MODELS = {"ist_net": _ist_net, "posenet_gt": _posenet_gt,
+           "modified_resnet": lambda b, variables: _encoder(b, "")}
 
 
 def state_dict_from_jax(variables: Mapping,
                         model: str = "ist_net") -> dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` trees of the JAX ``ISTNet``
-    (``model="ist_net"``) or ``PoseNetGT`` (``"posenet_gt"``), numpy or JAX
-    arrays -> the port's ``state_dict``, for
+    (``model="ist_net"``), ``PoseNetGT`` (``"posenet_gt"``) or a
+    ``ModifiedResnet`` of any backend on its own (``"modified_resnet"``),
+    numpy or JAX arrays -> the port's ``state_dict``, for
     ``load_state_dict(strict=True)``."""
     if model not in _MODELS:
         raise ConversionError(f"unknown model {model!r}")
-    b = _Bridge(variables)
+    b = Bridge(variables)
     _MODELS[model](b, variables)
     left = b.leftovers()
     if left:

@@ -20,6 +20,11 @@ and batches at the training width, B=24 (``syn_bs`` 18 + ``real_bs`` 6 of
 pipeline (``TrainingDataset(device_preprocess=True)``'s arrays), as
 ``tools/train_bench.py::make_synth_raw_batch`` makes it.
 
+``build_encoder`` is the RGB encoder of any trunk backend on its own, its
+BatchNorm statistics those of a seeded batch; ``random_resnet_state_dict``
+stands in for an ImageNet checkpoint of any
+trunk backend (torchvision's keys, seeded random values).
+
 ``dryrun_multichip`` is ``__graft_entry__.dryrun_multichip``'s data-parallel
 half: one DDP step over n processes at its tiny shapes.
 
@@ -45,12 +50,14 @@ from torch import nn
 
 from istnet_tpu_torch.models.ist_net import ISTNet
 from istnet_tpu_torch.nn import precision
-from istnet_tpu_torch.nn.layers import BatchNorm, PReLU
-from istnet_tpu_torch.nn.resnet_psp import ResNetTrunk
+from istnet_tpu_torch.nn.layers import BatchNorm, Dropout2d, PReLU
+from istnet_tpu_torch.nn.resnet_psp import ModifiedResnet, ResNetTrunk
 
 BATCH, NPOINTS, IMG, NCLASS = 32, 1024, 192, 6
 TRAIN_BATCH = 24
 SA_NPOINTS = (512, 256, 128, 64)
+# images whose batch statistics set build_encoder's BN running statistics
+CALIBRATION_BATCH = 4
 
 
 def _input_arrays(b: int, n: int, img: int, train: bool, seed: int) -> dict:
@@ -138,6 +145,52 @@ def perturb_eval_stats_(model: nn.Module, seed: int = 0) -> None:
                 t.copy_(torch.from_numpy(v.astype(np.float32)))
         elif isinstance(m, PReLU):
             m.weight.fill_(float(rng.uniform(0.1, 0.4)))
+
+
+def random_resnet_state_dict(backend: str = "resnet18", seed: int = 0
+                             ) -> dict[str, torch.Tensor]:
+    """A torchvision-layout ResNet state dict of ``backend`` (the keys of
+    torchvision's ``resnet<depth>().state_dict()``, classifier included)
+    with random values made from ``seed``, on the CPU: the stand-in for an
+    ImageNet checkpoint, which is never downloaded."""
+    trunk = ResNetTrunk(backend)
+    init_weights_(trunk, torch.Generator().manual_seed(seed))
+    perturb_eval_stats_(trunk, seed)
+    return {k: v.detach().clone() for k, v in trunk.state_dict().items()}
+
+
+@torch.no_grad()
+def build_encoder(backend: str = "resnet18",
+                  device: str | torch.device = "cuda", seed: int = 0,
+                  img: int = IMG) -> ModifiedResnet:
+    """The RGB encoder of ``backend`` on its own, in eval mode on
+    ``device``: random weights made from ``seed`` as ``build_model`` makes
+    them, then every BatchNorm's running statistics set to the batch
+    statistics of one train-mode forward (dropout off) of a seeded batch
+    of CALIBRATION_BATCH images of ``img`` x ``img``. Without that, a
+    deep trunk at random weights grows its eval activations block by block
+    (some 1e9-fold over resnet152's 50 blocks), where a trained one keeps
+    them normalised."""
+    device = on_device(device, "build_encoder")
+    model = ModifiedResnet(backend)
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    perturb_eval_stats_(model, seed)
+    model = model.to(device).train()
+    for m in model.modules():
+        if isinstance(m, Dropout2d):
+            m.eval()
+    x = _input_arrays(CALIBRATION_BATCH, 1, img, False, seed)["rgb"]
+    old = precision.compute_dtype()
+    precision.set_compute_dtype(torch.float32)
+    try:
+        model(torch.from_numpy(x).to(device))
+    finally:
+        precision.set_compute_dtype(old)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.running_mean.copy_(m.batch_mean)
+            m.running_var.copy_(m.batch_var)
+    return model.eval()
 
 
 def build_model(device: str | torch.device = "cuda", seed: int = 0,

@@ -1,4 +1,5 @@
-"""RGB encoder: stride-8 ResNet-18 + PSP + upsampling decoder.
+"""RGB encoder: stride-8 ResNet (resnet18, or one of the factory's
+34/50/101/152) + PSP + upsampling decoder.
 
 Counterpart of ``istnet_tpu/nn/resnet_psp.py``, with the same faithfulness
 notes: the reference's ResNet passes dilation 2/4 to layers 3/4 but never
@@ -40,51 +41,110 @@ from istnet_tpu_torch.nn.layers import (
     resize_bilinear,
     resize_bilinear_align_corners,
 )
+from istnet_tpu_torch.nn import precision
 from istnet_tpu_torch.nn.precision import compute_dtype
 from istnet_tpu_torch.ops.fold_upsample import pack_fold
 
-# (planes, stride, blocks) of the resnet18 stages the reference's
-# psp_models factory builds (it hardcodes resnet18)
-RESNET18_STAGES = ((64, 1, 2), (128, 2, 2), (256, 1, 2), (512, 1, 2))
-
-
 class BasicBlock(nn.Module):
+    """3x3 -> 3x3 (``istnet_tpu/nn/resnet_psp.py:73-94``)."""
+
+    expansion = 1
+
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm(planes)
-        self.downsample = None
-        if stride != 1 or inplanes != planes:
-            self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-                BatchNorm(planes))
+        self.downsample = _downsample(inplanes, planes, stride, self.expansion)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(conv2d_nhwc(x, self.conv1)))
         out = self.bn2(conv2d_nhwc(out, self.conv2))
-        residual = x
-        if self.downsample is not None:
-            residual = self.downsample[1](conv2d_nhwc(x, self.downsample[0]))
-        return F.relu(out + residual)
+        return F.relu(out + _residual(self, x))
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 with the stride -> 1x1 to 4x the planes
+    (``istnet_tpu/nn/resnet_psp.py:97-124``); the 3x3 at dilation 1, as
+    the network the reference builds runs it."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = BatchNorm(planes * 4)
+        self.downsample = _downsample(inplanes, planes, stride, self.expansion)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(conv2d_nhwc(x, self.conv1)))
+        out = F.relu(self.bn2(conv2d_nhwc(out, self.conv2)))
+        out = self.bn3(conv2d_nhwc(out, self.conv3))
+        return F.relu(out + _residual(self, x))
+
+
+def _downsample(inplanes: int, planes: int, stride: int, expansion: int):
+    """The 1x1 + BN residual branch where the reference's condition asks
+    for one: ``stride != 1 or inplanes != planes * expansion``
+    (``istnet_tpu/nn/resnet_psp.py:157-160``)."""
+    if stride == 1 and inplanes == planes * expansion:
+        return None
+    return nn.Sequential(
+        nn.Conv2d(inplanes, planes * expansion, 1, stride, bias=False),
+        BatchNorm(planes * expansion))
+
+
+def _residual(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if block.downsample is None:
+        return x
+    return block.downsample[1](conv2d_nhwc(x, block.downsample[0]))
+
+
+# block and stage depths of the reference's psp_models factory
+# (istnet_tpu/nn/resnet_psp.py:130-134); the models build resnet18
+RESNET_LAYERS = {
+    "resnet18": (BasicBlock, (2, 2, 2, 2)),
+    "resnet34": (BasicBlock, (3, 4, 6, 3)),
+    "resnet50": (Bottleneck, (3, 4, 6, 3)),
+    "resnet101": (Bottleneck, (3, 4, 23, 3)),
+    "resnet152": (Bottleneck, (3, 8, 36, 3)),
+}
+# (planes, stride) of the four stages
+STAGES = ((64, 1), (128, 2), (256, 1), (512, 1))
+
+
+def check_backend(backend: str) -> None:
+    if backend not in RESNET_LAYERS:
+        raise NotImplementedError(
+            f"backend {backend!r}: the reference's psp_models factory "
+            f"defines {sorted(RESNET_LAYERS)} (modules.py:225-231)")
 
 
 class ResNetTrunk(nn.Module):
-    """Stride-8 resnet18 trunk returning the layer-4 map (512 channels)."""
+    """Stride-8 trunk of ``backend`` returning the layer-4 map:
+    ``out_channels`` 512 for the BasicBlock nets, 2048 for the Bottleneck
+    nets."""
 
-    def __init__(self):
+    def __init__(self, backend: str = "resnet18"):
         super().__init__()
+        check_backend(backend)
+        block, depths = RESNET_LAYERS[backend]
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm(64)
         inplanes = 64
-        for li, (planes, stride, depth) in enumerate(RESNET18_STAGES):
-            blocks = [BasicBlock(inplanes, planes, stride)]
-            blocks += [BasicBlock(planes, planes) for _ in range(depth - 1)]
+        for li, ((planes, stride), depth) in enumerate(zip(STAGES, depths)):
+            blocks = [block(inplanes, planes, stride)]
+            inplanes = planes * block.expansion
+            blocks += [block(inplanes, planes) for _ in range(depth - 1)]
             self.add_module(f"layer{li + 1}", nn.Sequential(*blocks))
-            inplanes = planes
+        self.out_channels = inplanes
         # the reference trunk's classifier: loaded, never run
-        self.fc = nn.Linear(512, 1000)
+        self.fc = nn.Linear(inplanes, 1000)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(conv2d_nhwc(x, self.conv1)))
@@ -162,18 +222,25 @@ class PSPUpsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv[1]
-        if self.fold_kernel and not self.training:
-            return ops.fold_upsample_conv(cast(x), self.packed())
         k = cast(conv.weight.permute(2, 3, 1, 0))             # HWIO
         x, b = cast(x), cast(conv.bias)
-        return self.conv[3](self.conv[2](conv3x3_on_doubled(x, k, b)))
+        if self.fold_kernel and not self.training:
+            if compute_dtype() != torch.float64:
+                return ops.fold_upsample_conv(x, self.packed())
+            # the float64 policy (the CPU parity tests') packs nothing: the
+            # unpacked fold through the same dispatch, the plain fold on
+            # the CPU; on the card the kernel's wrapper refuses float64
+            y = ops.fold_upsample_conv(x, k, b)
+        else:
+            y = conv3x3_on_doubled(x, k, b)
+        return self.conv[3](self.conv[2](y))
 
 
 class _PSPNet(nn.Module):
-    def __init__(self):
+    def __init__(self, backend: str):
         super().__init__()
-        self.feats = ResNetTrunk()
-        self.psp = PSPModule(512, 1024)
+        self.feats = ResNetTrunk(backend)
+        self.psp = PSPModule(self.feats.out_channels, 1024)
         self.drop_1 = Dropout2d(0.3)
         self.up_1 = PSPUpsample(1024, 256)
         self.up_2 = PSPUpsample(256, 64, fold_kernel=True)
@@ -190,11 +257,16 @@ class ModifiedResnet(nn.Module):
     ``sparse_points`` evaluates the last upsample stage and the final head
     only at the chosen pixels, exactly equal in eval mode
     (``istnet_tpu/nn/resnet_psp.py:288-394``). ``generator`` draws the
-    dropout masks in training."""
+    dropout masks in training. Both set the policy's backend flags
+    (``precision.apply_policy``), as ``ISTNet.forward`` does, so that the
+    encoder runs alone as it runs in the model. ``backend`` names the
+    trunk, one of ``RESNET_LAYERS`` (the models keep resnet18, as JAX's
+    do); PSP maps any trunk's width to 1024 channels, so the decoder is the
+    same."""
 
-    def __init__(self):
+    def __init__(self, backend: str = "resnet18"):
         super().__init__()
-        self.model = _PSPNet()
+        self.model = _PSPNet(backend)
 
     def _features96(self, x: torch.Tensor,
                     generator: torch.Generator | None = None) -> torch.Tensor:
@@ -209,6 +281,7 @@ class ModifiedResnet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        precision.apply_policy()
         h = self._features96(x, generator)
         h = resize_bilinear_align_corners(h, 2 * h.shape[1], 2 * h.shape[2])
         up3 = self.model.up_3.conv
@@ -218,6 +291,7 @@ class ModifiedResnet(nn.Module):
     def sparse_points(self, x: torch.Tensor, choose: torch.Tensor
                       ) -> torch.Tensor:
         """(B, H, W, 3), (B, N) flat pixel indices -> (B, N, 128)."""
+        precision.apply_policy()
         up3 = self.model.up_3.conv
         return _sparse_head(self._features96(x), choose, up3[1],
                             lambda v: up3[3](up3[2](v)), self._final)

@@ -30,9 +30,11 @@ Solver steps at full width from a synthetic train tree with each step's
 launch counts (IST-Net and PoseNetGT), and a checkpoint written on the card
 restored on the CPU and back onto the card. Kernel 1 past 2048 points (both
 of its larger layouts). Data parallel: DDP over NCCL at world 1 bit-equal
-to the plain card step.
+to the plain card step. The batched Umeyama fit and RANSAC on the card
+against the CPU, and the resnet50 encoder's eval forward.
 """
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -1330,3 +1332,108 @@ def test_ddp_world_one_over_nccl_is_bit_equal_to_the_plain_step(cuda, tmp_path,
     assert all(torch.equal(a[k], b[k]) for a, b in zip(p0, p1) for k in a)
     differ = [k for k in s0 if not torch.equal(s0[k], s1[k])]
     assert not differ, differ[:5]
+
+
+def test_umeyama_and_ransac_on_the_card_match_the_cpu(cuda):
+    """The batched fit and the RANSAC's scoring on the card against the
+    CPU on the same hypotheses (every hypothesis of at least 3 distinct
+    points: fewer fix no rotation), and the RANSAC's own card draws
+    against the truth."""
+    from istnet_tpu_torch.ops import umeyama
+
+    rng = np.random.RandomState(14)
+    src = rng.randn(4, 300, 3) * 0.3
+    tgt = np.empty_like(src)
+    truth = []
+    for i in range(4):
+        r, _ = cv2.Rodrigues(rng.randn(3, 1))
+        s, t = rng.uniform(0.5, 2.0), rng.randn(3)
+        tgt[i] = src[i] @ (s * r).T + t
+        out = rng.choice(300, 60, replace=False)
+        tgt[i, out] += rng.randn(60, 3) * 3.0
+        truth.append((s, r, t))
+    s_cpu, t_cpu = torch.from_numpy(src), torch.from_numpy(tgt)
+    idx = torch.randint(0, 300, (4, 128, 5),
+                        generator=torch.Generator().manual_seed(0))
+    cpu = umeyama.score_hypotheses(s_cpu, t_cpu, idx)
+    card = umeyama.score_hypotheses(s_cpu.to(cuda), t_cpu.to(cuda),
+                                    idx.to(cuda))
+    fixed = torch.tensor([[len(set(h.tolist())) >= 3 for h in b]
+                          for b in idx])
+    assert torch.equal(card["ratios"].cpu()[fixed], cpu["ratios"][fixed])
+    assert torch.equal(card["inlier_mask"].cpu(), cpu["inlier_mask"])
+    for k in ("scale", "rotation", "translation", "transform"):
+        err = (card[k].cpu() - cpu[k]).abs().max().item()
+        assert err <= 1e-5 * max(1.0, cpu[k].abs().max().item()), (k, err)
+    fit = umeyama.umeyama(s_cpu.to(cuda), t_cpu.to(cuda))
+    want = umeyama.umeyama(s_cpu, t_cpu)
+    for g, w in zip(fit, want):
+        assert (g.cpu() - w).abs().max().item() <= 1e-5 * max(
+            1.0, w.abs().max().item())
+    drawn = umeyama.ransac_similarity(
+        s_cpu.to(cuda), t_cpu.to(cuda),
+        torch.Generator(device=cuda).manual_seed(1))
+    assert drawn["valid"].all()
+    for i, (s, r, t) in enumerate(truth):
+        assert abs(drawn["scale"][i].item() - s) <= 1e-2 * s
+        assert np.abs(drawn["rotation"][i].cpu().numpy() - r).max() <= 1e-2
+    es, er, et, _ = umeyama.estimate_similarity_transform(
+        src[0], tgt[0], device="cuda")
+    assert abs(es - truth[0][0]) <= 1e-2 * truth[0][0]
+
+
+def test_resnet50_encoder_on_the_card_matches_the_cpu(cuda):
+    """The Bottleneck trunk's eval forward, dense and sparse, on the card
+    and on the CPU against the CPU's float64 forward: the card's error at
+    most twice the CPU's float32 error (50 blocks of BN-normalised random
+    layers amplify rounding: the CPU's own float32 forward is ~1e-3 off);
+    the fold kernel launched once a forward."""
+    import copy
+
+    from istnet_tpu_torch.entry import build_encoder
+    from istnet_tpu_torch.nn.resnet_psp import ModifiedResnet
+
+    enc = build_encoder("resnet50", cuda, seed=5, img=48)
+    cpu = ModifiedResnet("resnet50")
+    cpu.load_state_dict({k: v.cpu() for k, v in enc.state_dict().items()})
+    cpu.eval()
+    cpu64 = copy.deepcopy(cpu).double()
+    rng = np.random.RandomState(6)
+    rgb = torch.from_numpy(rng.rand(2, 48, 48, 3).astype(np.float32))
+    choose = torch.from_numpy(rng.randint(0, 48 * 48, (2, 64)))
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        dense = enc(rgb.to(cuda))
+        sparse = enc.sparse_points(rgb.to(cuda), choose.to(cuda))
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == _counts(fold_upsample=2)
+        precision.set_compute_dtype(torch.float64)
+        try:
+            want = (cpu64(rgb.double()),
+                    cpu64.sparse_points(rgb.double(), choose))
+        finally:
+            precision.set_compute_dtype(torch.float32)
+        host = (cpu(rgb), cpu.sparse_points(rgb, choose))
+        for got, h, w in zip((dense, sparse), host, want):
+            card_err = (got.cpu().double() - w).abs().max().item()
+            cpu_err = (h.double() - w).abs().max().item()
+            assert card_err <= 2 * cpu_err, (card_err, cpu_err)
+
+
+def test_float64_eval_forward_on_the_card_raises(cuda):
+    """No kernel takes float64: under the float64 policy the encoder's
+    eval forward on the card raises at the fold kernel's wrapper, and the
+    plain fold never runs in the kernel's place."""
+    from istnet_tpu_torch.nn.resnet_psp import ModifiedResnet
+
+    enc = ModifiedResnet().double().to(cuda).eval()
+    rgb = torch.rand(1, 48, 48, 3, dtype=torch.float64, device=cuda)
+    ops.reset_launch_counts()
+    precision.set_compute_dtype(torch.float64)
+    try:
+        with torch.inference_mode(), pytest.raises(
+                TypeError, match="fold_upsample_conv: float32 or bfloat16"):
+            enc(rgb)
+    finally:
+        precision.set_compute_dtype(torch.float32)
+    assert ops.launch_counts() == _counts()

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from istnet_tpu_torch.cli import convert_torch_resnet
+from istnet_tpu_torch.entry import random_resnet_state_dict
 from istnet_tpu_torch.nn import precision
 from istnet_tpu_torch.train import checkpoints
 from istnet_tpu_torch.train.train_state import TrainConfig, make_optimizer
@@ -41,7 +43,7 @@ def test_cli_train_resume_and_test_from_its_checkpoint(root, tmp_path,
     restores it (model and optimizer bit-equal to the saved state) and runs
     epoch 6 from step 10 at ``TrainConfig.lr(10)``; ``cli/test.py`` then
     restores epoch 5 without ``--torch_checkpoint`` and gives finite APs.
-    What is not ported exits with its ROADMAP item; ``--devices 2``
+    ``--pretrained_backbone`` trains from a converted trunk; ``--devices 2``
     trains over two CPU ranks; a ``compute_dtype: bfloat16`` config trains
     under the bf16 policy."""
     from istnet_tpu_torch.cli import test as cli_test
@@ -80,9 +82,18 @@ def test_cli_train_resume_and_test_from_its_checkpoint(root, tmp_path,
     assert np.isfinite(iou).all() and np.isfinite(pose).all()
     assert len(glob.glob(os.path.join(log_dir, "eval_epoch5", "*.pkl"))) == 2
 
-    with pytest.raises(SystemExit, match="item 9"):
-        cli_train.main(["--config", cfg5] + data
-                       + ["--pretrained_backbone", "r.npz"])
+    # --pretrained_backbone trains from a converted ImageNet-layout trunk
+    pth, npz = str(tmp_path / "r18.pth"), str(tmp_path / "r18.npz")
+    torch.save(random_resnet_state_dict("resnet18", seed=3), pth)
+    convert_torch_resnet.main(["--torch_ckpt", pth, "--out", npz])
+    backbone = cli_train.main(["--config", _write_cfg(tmp_path / "bb.yaml",
+                                                      1, 2)]
+                              + ["--data_dir", str(root / "data"),
+                                 "--log_dir", str(tmp_path / "log_bb"),
+                                 "--device", "cpu",
+                                 "--pretrained_backbone", npz])
+    assert [r["step"] for r in backbone.records] == [0, 1]
+    assert all(np.isfinite(r["total"]) for r in backbone.records)
     # --devices 2 trains: two CPU ranks under gloo, each on 1 + 1 rows
     dp = cli_train.main(["--config", _write_cfg(tmp_path / "dp.yaml", 1, 2),
                          "--data_dir", str(root / "data"), "--log_dir",
