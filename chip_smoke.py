@@ -164,7 +164,8 @@ then data parallelism on the one card (``istnet_tpu_torch/parallel``):
    ``cuda:0``, each with 12 rows of a B = 24 batch (global-batch
    BatchNorm), one full-width step against one process's B = 24 card step
    from the same state, dropout off: loss parts and gradients within phase
-   9's full-width bounds, both ranks' updated state bit-equal;
+   9's full-width bounds, both ranks' updated state bit-equal, each
+   rank's peak memory;
 26. (run after 18) ``cli/train.py`` under torchrun (world 1, NCCL) over
    phase 15's trees, 5 epochs of one step and the epoch-5 checkpoint (the
    reference keys), launches counted in the torchrun process; then
@@ -202,6 +203,27 @@ then the leftovers of the JAX package (their seconds printed together):
    ``parse_trace`` / ``aggregate_ops``: the last forward's FPS, grouping,
    FP and fold kernels as many as their wrappers' launches; ``timed``
    against ``cuda_ms`` within the spread of 5 rounds.
+
+then FSDP (``parallel/mesh.py::shard_state_fsdp``, ``fully_shard`` over a
+``(dp, fsdp)`` mesh):
+
+33. FSDP world 1: ``multihost.initialize`` under torchrun's variables
+   (NCCL), a ``(1, 1)`` mesh; 3 steps at B = 24 of the f32 default and
+   frozen recipes and the bf16 default one, sharded, against the plain
+   card step from the same state, batches and generator: loss parts, the
+   last step's gradients and every state tensor (gathered) bit-equal, or
+   within phase 9's full-width bounds with the differences printed;
+   launches as the plain step's; the f32 default step's median ms, FSDP
+   and plain in turns, and peak memory;
+34. sharded checkpoint: phase 33's f32 FSDP state saved with DCP, restored
+   by ``restore_checkpoint_sharded`` into a fresh sharded model and
+   optimizer, the next step bit-equal to the unbroken run's; then
+   ``restore_for_eval`` of the same directory into the plain eval model on
+   the card: the B = 32 eval forward launches kernels 1-4 and equals the
+   forward of the gathered weights bit for bit; save and restore seconds;
+35. two ranks on one card with the model sharded over a ``(1, 2)`` mesh:
+   phase 25 under FSDP (gloo on ``cuda:0``), the ranks' gathered state one
+   digest, each rank's peak memory beside phase 25's.
 
 Before the last line come the card's name and power limit (first line) and a
 JSON object of per-kernel results with each kernel's bound; the last line is
@@ -260,6 +282,7 @@ BF16_PER_FORWARD = {"fps": 4, "ball_query_group": 1, "fp_interpolate": 4,
 TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG = 24, 1024, 192
 TRAIN_SA_NPOINTS = (512, 256, 128, 64)
 TRAIN_STEPS, FROZEN_STEPS, TIMED_STEPS = 3, 2, 10
+FSDP_TIMING_ROUNDS = 3     # phase 33's plain/fsdp/fsdp/plain turns
 SCATTER_TOL = 1e-5      # normwise, as FP_REL_TOL (f32 sums in a fixed
                         # order of their own, the plain versions in theirs)
 # launches of one step: forward FPS / grouping / FP in both extractors
@@ -2637,6 +2660,32 @@ def phase_fps_large(device) -> None:
         time_kernels({"fps": [case]}, "fps past 2048 ")
 
 
+def _whole(t):
+    """A tensor whole on this rank, detached (an FSDP shard gathered: a
+    collective every rank calls). A shard on a card under gloo (phase 35)
+    is gathered by c10d's ``all_gather``, as FSDP2 gathers: DTensor's
+    ``full_tensor`` waits on a functional collective there, which ends the
+    process with SIGSEGV under torch 2.11 (``PERF.md`` §7)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t.detach()
+    if t.device.type != "cuda" or dist.get_backend() != "gloo":
+        return t.full_tensor().detach()
+    (dim,) = [p.dim for p in t.placements if p.is_shard()]
+    world = dist.get_world_size()       # phase 35's mesh: (1, world)
+    size = t.shape[dim]
+    chunk = -(-size // world)          # torch.chunk's, FSDP2's shards
+    local = t.to_local().detach()
+    padded = local.new_zeros(local.shape[:dim] + (chunk,)
+                             + local.shape[dim + 1:])
+    padded.narrow(dim, 0, local.shape[dim]).copy_(local)
+    parts = [torch.empty_like(padded) for _ in range(world)]
+    dist.all_gather(parts, padded)
+    return torch.cat(parts, dim).narrow(dim, 0, size)
+
+
 def _state_equal(a: dict, b: dict) -> list:
     """Keys whose tensors differ in any bit."""
     import torch
@@ -2651,8 +2700,6 @@ def phase_ddp_world1(device) -> dict:
     the state bit-equal, launches as the plain step's; then the default
     step's median ms by CUDA events, DDP and plain in turns, and peak
     memory. Returns the DDP steps' launches."""
-    import statistics
-
     import torch
 
     from istnet_tpu_torch import ops
@@ -2712,32 +2759,8 @@ def phase_ddp_world1(device) -> dict:
                                          f"{bad[:3]}")
                 del runs, s0, s1
             # timings, the default recipe, plain and DDP in turns
-            cfg = TrainConfig()
-            batch = make_train_batch(TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG,
-                                     seed=30, device=device)
-            ms: dict = {"plain": [], "ddp": []}
-            peak: dict = {}
-            for turn in ("plain", "ddp", "ddp", "plain"):
-                model = build_train_model(device, seed=1,
-                                          sa_npoints=TRAIN_SA_NPOINTS)
-                opt = make_optimizer(model, cfg)
-                step_model = wrap_dp(model) if turn == "ddp" else model
-                gen = torch.Generator(device=device).manual_seed(1)
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats(device)
-                for step in range(2 + TIMED_STEPS // 2):
-                    ev = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                    with no_gc():
-                        ev[0].record()
-                        train_step(step_model, opt, batch, step, gen, cfg)
-                        ev[1].record()
-                        torch.cuda.synchronize()
-                    if step >= 2:
-                        ms[turn].append(ev[0].elapsed_time(ev[1]))
-                peak[turn] = torch.cuda.max_memory_allocated(device) / 2 ** 30
-                del model, opt, step_model
-            med = {k: statistics.median(v) for k, v in ms.items()}
+            ms, med, peak, _ = _step_turns(device, "ddp",
+                                           lambda m: (m, wrap_dp(m)))
             print(f"[timings] ddp world 1, default step B={TRAIN_BATCH} "
                   f"f32, in turns plain/ddp/ddp/plain, {TIMED_STEPS} steps "
                   f"each: median ddp {med['ddp']:.3f} ms (min "
@@ -2752,12 +2775,68 @@ def phase_ddp_world1(device) -> dict:
     return totals
 
 
-def _gloo_rank(rank: int, world: int, store, out: str, kind: str) -> dict:
-    """A rank of phase 25 (a spawned process): gloo, on ``cuda:0`` as the
-    other rank; its DP_RANK_BATCH rows of the B=24 batch, one default step,
-    dropout off. Rank 0 saves its gradients to ``out``; each returns its
-    loss parts (averaged over the ranks), launches, the digest of its
-    updated state and its step's seconds. ``kind``: the device type."""
+def _step_turns(device, name: str, wrap,
+                rounds: int = 1) -> tuple[dict, dict, dict, list]:
+    """The default f32 step at B=24 timed by CUDA events, plain and
+    ``name`` in turns (plain, name, name, plain, ``rounds`` times),
+    TIMED_STEPS // 2 steps a turn after 2 warm-up steps, each turn from the
+    same fresh model; ``wrap(model) -> (model, step_model)`` makes
+    ``name``'s. Returns the step ms, their medians and each kind's peak GiB
+    (its last turn's), by kind, and for each pair of adjacent turns (1-2,
+    3-4, ...) the ratio of ``name``'s median step to plain's."""
+    import statistics
+
+    import torch
+
+    from istnet_tpu_torch.entry import build_train_model, make_train_batch
+    from istnet_tpu_torch.train.train_state import (TrainConfig,
+                                                    make_optimizer, train_step)
+    cfg = TrainConfig()
+    batch = make_train_batch(TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG,
+                             seed=30, device=device)
+    ms: dict = {"plain": [], name: []}
+    peak: dict = {}
+    turns = []
+    for turn in ("plain", name, name, "plain") * rounds:
+        turns.append((turn, []))
+        model = build_train_model(device, seed=1,
+                                  sa_npoints=TRAIN_SA_NPOINTS)
+        model, step_model = (model, model) if turn == "plain" else wrap(model)
+        opt = make_optimizer(model, cfg)
+        gen = torch.Generator(device=device).manual_seed(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        for step in range(2 + TIMED_STEPS // 2):
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(2)]
+            with no_gc():
+                ev[0].record()
+                train_step(step_model, opt, batch, step, gen, cfg)
+                ev[1].record()
+                torch.cuda.synchronize()
+            if step >= 2:
+                turns[-1][1].append(ev[0].elapsed_time(ev[1]))
+        ms[turn] += turns[-1][1]
+        peak[turn] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        del model, opt, step_model
+    ratios = []
+    for (a, a_ms), (_, b_ms) in zip(turns[::2], turns[1::2]):
+        named, plain = (a_ms, b_ms) if a == name else (b_ms, a_ms)
+        ratios.append(statistics.median(named) / statistics.median(plain))
+    return (ms, {k: statistics.median(v) for k, v in ms.items()}, peak,
+            ratios)
+
+
+def _gloo_rank(rank: int, world: int, store, out: str, kind: str,
+               fsdp: bool = False) -> dict:
+    """A rank of phase 25 (35 with ``fsdp``; a spawned process): gloo, on
+    ``cuda:0`` as the other rank; its DP_RANK_BATCH rows of the B=24 batch,
+    one default step, dropout off, through ``wrap_dp`` (with ``fsdp``: the
+    model sharded over a ``(1, world)`` mesh). Rank 0 saves its gradients
+    (gathered) to ``out``; each returns its loss parts (averaged over the
+    ranks), launches, the digest of its updated state (gathered), its
+    step's seconds and its peak GiB (its process's allocations from the
+    model's build to the step's end). ``kind``: the device type."""
     import torch
 
     from istnet_tpu_torch import ops
@@ -2770,32 +2849,38 @@ def _gloo_rank(rank: int, world: int, store, out: str, kind: str) -> dict:
     device = multihost.initialize(kind, backend="gloo", store=store,
                                   rank=rank, world_size=world, local_rank=0)
     try:
+        torch.cuda.reset_peak_memory_stats(device)
         model = build_train_model(device, seed=4, sa_npoints=TRAIN_SA_NPOINTS)
         _dropout_off(model)
         cfg = TrainConfig()
+        if fsdp:
+            mesh.shard_state_fsdp(mesh.make_mesh_2d(1, world, kind), model)
         opt = make_optimizer(model, cfg)
-        batch = mesh.shard_batch(make_train_batch(
+        batch = mesh.shard_batch_2d(make_train_batch(
             TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG, seed=6, device=device),
             rank, world)
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        parts = train_step(mesh.wrap_dp(model), opt, batch, 0,
-                           torch.Generator(device=device), cfg)
+        parts = train_step(model if fsdp else mesh.wrap_dp(model), opt,
+                           batch, 0, torch.Generator(device=device), cfg)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
         counts = ops.launch_counts()
         parts = {k: float(all_reduce_mean(v)) for k, v in parts.items()}
+        grads = {n: _whole(p.grad).cpu() for n, p in
+                 model.named_parameters() if p.grad is not None}
         if rank == 0:
-            torch.save({n: p.grad.detach().cpu() for n, p in
-                        model.named_parameters() if p.grad is not None}, out)
+            torch.save(grads, out)
         return {"parts": parts, "counts": counts, "seconds": seconds,
-                "digest": state_digest(model)}
+                "peak": peak, "digest": state_digest(
+                    {k: _whole(v) for k, v in model.state_dict().items()})}
     finally:
         multihost.shutdown()
 
 
-def phase_two_ranks_one_card(device) -> None:
+def phase_two_ranks_one_card(device, fsdp: bool = False) -> None:
     """Phase 25: the global-batch BatchNorm across 2 ranks that share the
     card (two spawned processes, gloo: NCCL refuses two ranks on one card),
     each with DP_RANK_BATCH rows of a B=24 batch, one full-width f32 step
@@ -2803,7 +2888,9 @@ def phase_two_ranks_one_card(device) -> None:
     dropout off: loss parts relative and gradients normwise within phase
     9's full-width bounds (FULL_LOSS_TOL, FULL_GRAD_TOL); both ranks'
     updated parameters and BN running statistics bit-equal (one digest);
-    each rank's launches those of a step."""
+    each rank's launches those of a step. Phase 35 (``fsdp``): the same
+    with the model sharded over a ``(dp, fsdp) = (1, 2)`` mesh, the ranks'
+    parameters gathered for the digest."""
     import tempfile
 
     import torch
@@ -2816,7 +2903,8 @@ def phase_two_ranks_one_card(device) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "grads.pt")
         t0 = time.perf_counter()
-        ranks = multihost.spawn(_gloo_rank, 2, out, device.type, timeout=600)
+        ranks = multihost.spawn(_gloo_rank, 2, out, device.type, fsdp,
+                                timeout=600)
         spawn_s = time.perf_counter() - t0
         g_dp = torch.load(out)
     model = build_train_model(device, seed=4, sa_npoints=TRAIN_SA_NPOINTS)
@@ -2841,7 +2929,9 @@ def phase_two_ranks_one_card(device) -> None:
                 for k, g in g_one.items()) / g_top
     same = (len({r["digest"] for r in ranks}) == 1
             and ranks[0]["parts"] == ranks[1]["parts"])
-    print(f"[two ranks, one card] gloo, 2 x B={DP_RANK_BATCH} against one "
+    label = "fsdp (1, 2), two ranks, one card" if fsdp else (
+        "two ranks, one card")
+    print(f"[{label}] gloo, 2 x B={DP_RANK_BATCH} against one "
           f"process's B={TRAIN_BATCH} card step: loss parts rel err "
           f"{loss_err:.3g} (bound {FULL_LOSS_TOL:g}); gradients normwise "
           f"{g_err:.3g} (bound {FULL_GRAD_TOL:g}; max|g| {g_top:.3g}); the "
@@ -2849,10 +2939,11 @@ def phase_two_ranks_one_card(device) -> None:
           f"{'bit-equal' if same else 'DIFFER'}; launches a rank "
           f"{TRAIN_PER_STEP}; a rank's step {ranks[0]['seconds']:.2f} / "
           f"{ranks[1]['seconds']:.2f} s under gloo (host round trips, not "
-          f"what NCCL would give), the phase {spawn_s:.1f} s with the "
-          f"processes' start")
+          f"what NCCL would give), peak memory a rank {ranks[0]['peak']:.3f}"
+          f" / {ranks[1]['peak']:.3f} GiB, the phase {spawn_s:.1f} s with "
+          f"the processes' start")
     if not same or loss_err > FULL_LOSS_TOL or g_err > FULL_GRAD_TOL:
-        raise AssertionError("two ranks on one card: out of bounds")
+        raise AssertionError(f"{label}: out of bounds")
 
 
 def torchrun_train_child(out: str, argv: list) -> None:
@@ -2982,6 +3073,253 @@ def phase_eval_dp(model, device) -> dict:
           f"{err:.3g} (bound {CPU_ATOL:g}); launches {counts}; "
           f"{dp_ms:.3f} ms a batch against {one_ms:.3f} ms")
     return counts
+
+
+def _fsdp_compare(label: str, plain, sharded) -> None:
+    """Phase 33's check of two runs ``(loss parts a step, gradients of the
+    last step, state)``: bit-equal, or the loss parts and the gradients
+    within phase 9's full-width bounds, the differences printed."""
+    import torch
+    (p0, g0, s0), (p1, g1, s1) = plain, sharded
+    bad_parts = [(i, k) for i in range(len(p0)) for k in p0[i]
+                 if not torch.equal(p0[i][k], p1[i][k])]
+    bad = _state_equal(s0, s1) + [k for k in g0 if k in g1
+                                  and not torch.equal(g0[k], g1[k])]
+    loss_err = max(abs(float(p1[i][k]) - float(v)) / max(abs(float(v)), 1e-12)
+                   for i in range(len(p0)) for k, v in p0[i].items())
+    g_top = max(g.abs().max().item() for g in g0.values())
+    g_err = max((g1[k].float() - g.float()).abs().max().item()
+                for k, g in g0.items() if k in g1) / g_top
+    print(f"[fsdp world 1] {label}: {len(bad_parts)} loss parts and "
+          f"{len(bad)} of {len(s0) + len(g0)} state and gradient tensors "
+          f"differ from the plain step's in any bit (loss parts rel err "
+          f"{loss_err:.3g}, bound {FULL_LOSS_TOL:g}; last step's gradients "
+          f"normwise {g_err:.3g}, bound {FULL_GRAD_TOL:g})")
+    if set(g0) != set(g1) or list(s0) != list(s1) or (
+            (bad or bad_parts) and (loss_err > FULL_LOSS_TOL
+                                    or g_err > FULL_GRAD_TOL)):
+        raise AssertionError(f"fsdp world 1 {label}: out of bounds")
+
+
+def _steps(model, opt, cfg, device, per_step: dict, label: str):
+    """DP_STEPS steps of the batches seeded 10.. from generator seed 0,
+    launches checked against ``per_step`` a step; returns the loss parts,
+    the last step's gradients and the state, whole, and the launches."""
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.entry import make_train_batch
+    from istnet_tpu_torch.train.train_state import train_step
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    parts = [train_step(model, opt, make_train_batch(
+        TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG, seed=10 + k, device=device),
+        k, gen, cfg) for k in range(DP_STEPS)]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {k: v * DP_STEPS for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    grads = {n: _whole(p.grad) for n, p in model.named_parameters()
+             if p.grad is not None}
+    state = {k: _whole(v).clone() for k, v in model.state_dict().items()}
+    return (parts, grads, state), counts, gen
+
+
+def phase_fsdp_world1(device) -> dict:
+    """Phase 33: ``multihost.initialize`` under torchrun's variables (world
+    1, NCCL), a ``(1, 1)`` mesh (``make_mesh_2d``); DP_STEPS steps at B=24
+    of the f32 default and frozen recipes and the bf16 default one, the
+    model sharded by ``shard_state_fsdp`` against the plain card step from
+    the same state, batches and generator (``_fsdp_compare``), launches as
+    the plain step's; the f32 default step's median ms, FSDP and plain in
+    FSDP_TIMING_ROUNDS rounds of turns with each adjacent pair's ratio,
+    and peak memory. Phase 34 runs on the f32 default FSDP run. Returns
+    the FSDP steps' launches by compute dtype."""
+    import statistics
+
+    import torch
+
+    from istnet_tpu_torch.entry import build_train_model
+    from istnet_tpu_torch.parallel import (make_mesh_2d, multihost,
+                                           shard_state_fsdp)
+    from istnet_tpu_torch.train.train_state import TrainConfig, make_optimizer
+    totals: dict = {"float32": {}, "bfloat16": {}}
+    with _launch_env(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0,
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=_free_port()):
+        got = multihost.initialize(device.type)
+        backend = torch.distributed.get_backend()
+        if backend != ("nccl" if device.type == "cuda" else "gloo") or (
+                got != device):
+            raise AssertionError(f"world 1: {backend} on {got}")
+        try:
+            mesh = make_mesh_2d(1, 1, device.type)
+            for dtype, cfg, per_step in (
+                    (torch.float32, TrainConfig(), TRAIN_PER_STEP),
+                    (torch.float32, TrainConfig.frozen(), FROZEN_PER_STEP),
+                    (torch.bfloat16, TrainConfig(), TRAIN_PER_STEP)):
+                label = (f"{'bf16' if dtype == torch.bfloat16 else 'f32'} "
+                         f"{'frozen' if cfg.freeze_world_enhancer else 'default'}")
+                runs = []
+                with policy(dtype):
+                    for sharded in (False, True):
+                        model = build_train_model(
+                            device, seed=0, sa_npoints=TRAIN_SA_NPOINTS,
+                            freeze_world_enhancer=cfg.freeze_world_enhancer,
+                            dtype=dtype)
+                        if sharded:
+                            shard_state_fsdp(mesh, model)
+                        opt = make_optimizer(model, cfg)
+                        run, counts, gen = _steps(
+                            model, opt, cfg, device, per_step,
+                            f"{'fsdp' if sharded else 'plain'} {label}")
+                        runs.append(run)
+                        if sharded:
+                            tally = totals[str(dtype).removeprefix("torch.")]
+                            for k, v in counts.items():
+                                tally[k] = tally.get(k, 0) + v
+                        if sharded and label == "f32 default":
+                            _fsdp_compare(label, *runs)
+                            phase_sharded_checkpoint(device, mesh, model,
+                                                     opt, gen, cfg)
+                        del model, opt
+                if label != "f32 default":
+                    _fsdp_compare(label, *runs)
+                del runs
+            ms, med, peak, ratios = _step_turns(
+                device, "fsdp", lambda m: (shard_state_fsdp(mesh, m),) * 2,
+                rounds=FSDP_TIMING_ROUNDS)
+            print(f"[timings] fsdp world 1, default step B={TRAIN_BATCH} "
+                  f"f32, in turns plain/fsdp/fsdp/plain x "
+                  f"{FSDP_TIMING_ROUNDS}, {TIMED_STEPS // 2} steps a turn: "
+                  f"median fsdp {med['fsdp']:.3f} ms (min "
+                  f"{min(ms['fsdp']):.3f}, max {max(ms['fsdp']):.3f}), plain "
+                  f"{med['plain']:.3f} ms (min {min(ms['plain']):.3f}, max "
+                  f"{max(ms['plain']):.3f}): "
+                  f"{med['fsdp'] / med['plain'] - 1:+.1%}; median of the "
+                  f"{len(ratios)} adjacent turn pairs' ratios "
+                  f"{statistics.median(ratios) - 1:+.1%} (pairs "
+                  + ", ".join(f"{r - 1:+.1%}" for r in ratios)
+                  + f"); peak memory fsdp {peak['fsdp']:.2f} GiB, plain "
+                  f"{peak['plain']:.2f} GiB")
+        finally:
+            multihost.shutdown()
+    return totals
+
+
+def phase_sharded_checkpoint(device, mesh, model, opt, gen, cfg) -> None:
+    """Phase 34: phase 33's f32 default FSDP state after DP_STEPS steps
+    saved sharded (DCP); the next step of the unbroken run against the
+    same step of a fresh sharded model and optimizer restored by
+    ``restore_checkpoint_sharded``: loss parts and state bit-equal. The
+    same state read into a plain model and optimizer by
+    ``restore_checkpoint`` and saved plain (a DDP run's layout), then
+    ``restore_checkpoint_sharded`` of that file into another fresh sharded
+    model (rank 0's broadcast over NCCL): its next step bit-equal too. Then
+    ``restore_for_eval`` of the sharded directory into the plain eval model
+    on the card: the B=32 f32 eval forward launches F32_PER_FORWARD and
+    equals, bit for bit, the forward of the FSDP run's gathered weights.
+    Save and restore seconds."""
+    import tempfile
+
+    import torch
+
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.entry import (build_model, build_train_model,
+                                        make_inputs, make_train_batch)
+    from istnet_tpu_torch.parallel import shard_state_fsdp
+    from istnet_tpu_torch.train import checkpoints
+    from istnet_tpu_torch.train.train_state import make_optimizer, train_step
+    gathered = {k: _whole(v).clone() for k, v in model.state_dict().items()}
+    batch = make_train_batch(TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG,
+                             seed=10 + DP_STEPS, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoints.save_checkpoint(tmp, 1, model, opt, DP_STEPS)
+        save_s = time.perf_counter() - t0
+        files = sorted(os.listdir(os.path.join(tmp, "1")))
+        size = sum(os.path.getsize(os.path.join(tmp, "1", f)) for f in files)
+        gen_state = gen.get_state()
+        p_unbroken = train_step(model, opt, batch, DP_STEPS, gen, cfg)
+        s_unbroken = {k: _whole(v).clone()
+                      for k, v in model.state_dict().items()}
+        fresh = build_train_model(device, seed=7, sa_npoints=TRAIN_SA_NPOINTS)
+        shard_state_fsdp(mesh, fresh)
+        fresh_opt = make_optimizer(fresh, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, meta = checkpoints.restore_checkpoint_sharded(tmp, 1, fresh,
+                                                            fresh_opt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        gen.set_state(gen_state)
+        p_resumed = train_step(fresh, fresh_opt, batch, step, gen, cfg)
+        s_resumed = {k: _whole(v).clone()
+                     for k, v in fresh.state_dict().items()}
+        bad = _state_equal(s_unbroken, s_resumed) + [
+            k for k in p_unbroken if not torch.equal(p_unbroken[k],
+                                                     p_resumed[k])]
+        del fresh, fresh_opt, s_resumed
+        # the same state in the plain layout, resumed sharded
+        plain = build_train_model(device, seed=8, sa_npoints=TRAIN_SA_NPOINTS)
+        plain_opt = make_optimizer(plain, cfg)
+        checkpoints.restore_checkpoint(tmp, 1, plain, plain_opt)
+        plain_dir = os.path.join(tmp, "plain")
+        checkpoints.save_checkpoint(plain_dir, 1, plain, plain_opt, DP_STEPS)
+        del plain, plain_opt
+        fresh = build_train_model(device, seed=9, sa_npoints=TRAIN_SA_NPOINTS)
+        shard_state_fsdp(mesh, fresh)
+        fresh_opt = make_optimizer(fresh, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_step, plain_meta = checkpoints.restore_checkpoint_sharded(
+            plain_dir, 1, fresh, fresh_opt)
+        torch.cuda.synchronize()
+        plain_restore_s = time.perf_counter() - t0
+        gen.set_state(gen_state)
+        p_resumed = train_step(fresh, fresh_opt, batch, plain_step, gen, cfg)
+        s_resumed = {k: _whole(v).clone()
+                     for k, v in fresh.state_dict().items()}
+        bad_plain = _state_equal(s_unbroken, s_resumed) + [
+            k for k in p_unbroken if not torch.equal(p_unbroken[k],
+                                                     p_resumed[k])]
+        del fresh, fresh_opt, s_unbroken, s_resumed
+        t0 = time.perf_counter()
+        saved = checkpoints.restore_for_eval(tmp, 1, map_location=device)
+        eval_s = time.perf_counter() - t0
+    evald, ref = build_model(device, seed=3), build_model(device, seed=4)
+    evald.load_state_dict(saved["model"], strict=True)
+    ref.load_state_dict(gathered, strict=True)
+    inputs = make_inputs(BATCH, seed=34, device=device)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = evald(inputs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = ref(inputs)
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    print(f"[sharded checkpoint] DCP save of the f32 FSDP state after "
+          f"{DP_STEPS} steps: {save_s:.3f} s, {len(files)} files, "
+          f"{size / 2 ** 20:.1f} MiB; restore_checkpoint_sharded into a "
+          f"fresh sharded model and optimizer {restore_s:.3f} s (step {step}, "
+          f"meta {meta}); the next step {len(bad)} tensors and loss parts "
+          f"off the unbroken run's in any bit; from the same state saved "
+          f"plain, restore_checkpoint_sharded {plain_restore_s:.3f} s (step "
+          f"{plain_step}), the next step {len(bad_plain)} off in any bit; "
+          f"restore_for_eval on the card "
+          f"{eval_s:.3f} s, its B={BATCH} eval forward: launches {counts}, "
+          f"{len(differ)} of {len(want)} outputs off the gathered weights' "
+          f"forward in any bit")
+    if (bad or bad_plain or differ or step != DP_STEPS
+            or meta != {"epoch": 1} or plain_step != DP_STEPS
+            or plain_meta != {"epoch": 1}
+            or {k: v for k, v in counts.items() if v}
+            != {k: v for k, v in F32_PER_FORWARD.items() if v}):
+        raise AssertionError(f"sharded checkpoint: {bad[:3]} "
+                             f"{bad_plain[:3]} {differ[:3]} {counts}")
 
 
 # the trunk backends (phase 28): each one's encoder alone at the eval
@@ -3717,6 +4055,19 @@ def main() -> int:
     for path, dtype in (("trunks", "float32"), ("trunks bf16", "bfloat16")):
         counts_k, errs_k, times_k = trunk_runs[dtype]
         record(path, dtype, errs_k, counts_k, times_k, ["fold_upsample"])
+
+    # phases 33-35: FSDP at world 1 over NCCL against the plain step, the
+    # sharded checkpoint, two gloo ranks sharding the model on the card
+    seconds = {}
+    fsdp_counts = clocked("33-34 fsdp world 1, sharded checkpoint",
+                          phase_fsdp_world1, device)
+    clocked("35 fsdp two ranks", phase_two_ranks_one_card, device, True)
+    print("[phases 33-35] " + ", ".join(f"{k} {v:.1f} s"
+                                         for k, v in seconds.items()))
+    record("fsdp world 1", "float32", errs_t, fsdp_counts["float32"],
+           times_t, list(train_cases))
+    record_split("fsdp world 1 bf16", errs_tb, fsdp_counts["bfloat16"],
+                 times_tb, cases_tb)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device_info}))

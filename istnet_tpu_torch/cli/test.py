@@ -7,7 +7,8 @@
   [--vis [--vis_axes] [--vis_labels]] [--device cpu]``
 
 Weights come from the port's own checkpoint of ``--test_epoch`` under
-``log_dir/ckpt`` (``cli/train.py`` writes it), or from
+``log_dir/ckpt`` (``cli/train.py`` writes it; an FSDP run's sharded
+checkpoint is read whole into one process), or from
 ``--torch_checkpoint``: a reference ``.pth`` state dict loads directly
 (strict), a ``.npz`` of JAX trees goes through ``istnet_tpu_torch.convert``.
 The model runs on the card unless ``--device cpu`` is given, under the
@@ -84,8 +85,8 @@ def main(argv=None):
     exp_name = os.path.splitext(os.path.basename(args.config))[0]
     log_dir = args.log_dir or os.path.join("log", exp_name)
     ckpt_dir = os.path.join(log_dir, "ckpt")
-    if not (args.only_eval or args.torch_checkpoint or os.path.exists(
-            checkpoints.checkpoint_path(ckpt_dir, args.test_epoch))):
+    if not (args.only_eval or args.torch_checkpoint or
+            checkpoints.has_checkpoint(ckpt_dir, args.test_epoch)):
         raise SystemExit(f"no checkpoint of epoch {args.test_epoch} under "
                          f"{ckpt_dir}: train with cli/train.py, or pass "
                          "--torch_checkpoint")

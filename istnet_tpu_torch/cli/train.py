@@ -32,6 +32,15 @@ The config's batch sizes are global: every rank loads ``syn_bs / N`` and
 ``real_bs / N`` rows, its datasets seeded ``rd_seed + rank * 7919`` and
 ``+ 1`` (``istnet_tpu/cli/train.py:175-196``); each rank writes its own log
 file, suffixed ``_p<rank>``.
+
+FSDP (``parallel: {fsdp: N [, dp: M]}``, N > 1; ``--devices`` or torchrun
+as above) runs in the JAX CLI's order (``istnet_tpu/cli/train.py:
+130-151``): the whole model is built, takes the ImageNet trunk and the
+world-enhancer transplant and goes to the device; then
+``parallel.mesh.shard_state_fsdp`` over ``make_mesh_2d(dp, fsdp)``, then
+the optimizer on the sharded parameters, then ``--checkpoint_epoch``'s
+sharded restore (each rank its own shards), then the Solver. Checkpoints
+are sharded (``train/checkpoints.py``).
 """
 
 from __future__ import annotations
@@ -99,11 +108,16 @@ class DataParallelRun:
 
 
 def state_digest(model) -> str:
-    """SHA-256 of a model's state (every tensor's bytes, in key order)."""
+    """SHA-256 of a model's state, or of a state dict (every tensor's
+    bytes, in key order)."""
     import torch
+    from torch.distributed.tensor import DTensor
 
     h = hashlib.sha256()
-    for key, t in model.state_dict().items():
+    state = model if isinstance(model, dict) else model.state_dict()
+    for key, t in state.items():
+        if isinstance(t, DTensor):     # an FSDP shard: every rank gathers
+            t = t.full_tensor()
         h.update(key.encode())
         h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8)
                  .numpy().tobytes())
@@ -179,8 +193,9 @@ def train(args, device):
 
     from istnet_tpu_torch.nn import precision
     from istnet_tpu_torch.parallel import multihost
+    from istnet_tpu_torch.parallel.mesh import make_mesh_2d, shard_state_fsdp
     from istnet_tpu_torch.train import checkpoints
-    from istnet_tpu_torch.train.solver import Solver
+    from istnet_tpu_torch.train.solver import Solver, fsdp_mesh_shape
     from istnet_tpu_torch.train.train_state import TrainConfig, make_optimizer
     from istnet_tpu_torch.utils import Config, get_logger
 
@@ -207,8 +222,8 @@ def train(args, device):
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"#parameters: {n_params / 1e6:.2f}M")
 
-    # before the transplant, the optimizer and DDP's first broadcast
-    # (istnet_tpu/cli/train.py:123-129)
+    # before the transplant, the sharding, the optimizer and DDP's first
+    # broadcast (istnet_tpu/cli/train.py:123-129)
     if args.pretrained_backbone:
         from istnet_tpu_torch.cli.convert_torch_resnet import (
             load_pretrained_backbone)
@@ -223,15 +238,28 @@ def train(args, device):
             model)
         logger.info(f"loaded world enhancer from {cfg.world_enhancer_weights}")
     model = model.to(device).train()
-    # built before any restore, as the fresh run builds it: the optimizer
-    # state maps onto the same parameters in the same order
+    dl = cfg.train_dataloader
+    mesh_shape = fsdp_mesh_shape(cfg.get("parallel"), n_proc,
+                                 int(dl.syn_bs) + int(dl.real_bs))
+    if mesh_shape is not None:
+        model = shard_state_fsdp(make_mesh_2d(*mesh_shape, device.type),
+                                 model)
+    # built after the sharding and before any restore, as the fresh run
+    # builds it: the optimizer state maps onto the same parameters in the
+    # same order
     optimizer = make_optimizer(model, train_cfg)
 
     start_epoch, step = 1, 0
-    if args.checkpoint_epoch >= 0:
+    ckpt_dir = os.path.join(log_dir, "ckpt")
+    if args.checkpoint_epoch >= 0 and mesh_shape is not None:
+        step, meta = checkpoints.restore_checkpoint_sharded(
+            ckpt_dir, args.checkpoint_epoch, model, optimizer)
+        start_epoch = int(meta["epoch"]) + 1
+        logger.info(f"resumed from epoch {args.checkpoint_epoch} "
+                    "(sharded restore)")
+    elif args.checkpoint_epoch >= 0:
         payload = checkpoints.restore_checkpoint(
-            os.path.join(log_dir, "ckpt"), args.checkpoint_epoch, model,
-            optimizer)
+            ckpt_dir, args.checkpoint_epoch, model, optimizer)
         start_epoch = int(payload["meta"]["epoch"]) + 1
         step = int(payload["step"])
         logger.info(f"resumed from epoch {args.checkpoint_epoch} (step {step})")

@@ -340,9 +340,12 @@ DRYRUN_LOSS_RTOL = 1e-4
 DRYRUN_TIMEOUT_S = 600
 
 
-def _dryrun_rank(rank: int, world: int, store, device: str) -> float:
+def _dryrun_rank(rank: int, world: int, store, device: str) -> tuple:
     """One rank of ``dryrun_multichip``: its rows of the batch, one step of
-    the DDP-wrapped model; the loss averaged over the ranks."""
+    the DDP-wrapped model; for ``world >= 4`` and even, then one step of a
+    fresh model sharded over a ``(2, world // 2)`` FSDP mesh. Returns the
+    losses averaged over the ranks (the FSDP one None where it did not
+    run)."""
     from istnet_tpu_torch.parallel import collectives, mesh, multihost
     from istnet_tpu_torch.train.train_state import (TrainConfig,
                                                     make_optimizer, train_step)
@@ -352,13 +355,23 @@ def _dryrun_rank(rank: int, world: int, store, device: str) -> float:
     dev = multihost.initialize(device, store=store, rank=rank,
                                world_size=world)
     try:
-        model, batch = _dryrun_setup(world, dev)
         cfg = TrainConfig()
-        opt = make_optimizer(model, cfg)
-        parts = train_step(mesh.wrap_dp(model), opt,
-                           mesh.shard_batch(batch, rank, world), 0,
-                           torch.Generator(device=dev).manual_seed(rank), cfg)
-        return float(collectives.all_reduce_mean(parts["total"]))
+        losses = []
+        for fsdp in (False, True):
+            if fsdp and (world < 4 or world % 2):
+                losses.append(None)
+                continue
+            model, batch = _dryrun_setup(world, dev)
+            if fsdp:
+                model = mesh.shard_state_fsdp(
+                    mesh.make_mesh_2d(2, world // 2, dev.type), model)
+            opt = make_optimizer(model, cfg)
+            parts = train_step(model if fsdp else mesh.wrap_dp(model), opt,
+                               mesh.shard_batch_2d(batch, rank, world), 0,
+                               torch.Generator(device=dev).manual_seed(rank),
+                               cfg)
+            losses.append(float(collectives.all_reduce_mean(parts["total"])))
+        return tuple(losses)
     finally:
         multihost.shutdown()
 
@@ -382,7 +395,10 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> float:
     SA npoints 32/16/8/8): NCCL over ``cuda:0..n-1`` (n cards needed), or
     gloo over n CPU processes with ``device="cpu"``. The loss must be finite,
     the same on every rank, and equal within ``DRYRUN_LOSS_RTOL`` to one
-    process's step on the whole batch; returns it."""
+    process's step on the whole batch. For ``n >= 4`` and even, the same
+    step of the model sharded over a ``(2, n // 2)`` FSDP mesh too: finite,
+    the same on every rank, within JAX's ``1e-3 + 1e-3 * |loss|`` of the DP
+    loss. Returns the DP loss."""
     from istnet_tpu_torch.parallel import multihost
     from istnet_tpu_torch.train.train_state import (TrainConfig,
                                                     make_optimizer, train_step)
@@ -392,12 +408,13 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> float:
         if torch.cuda.device_count() < n_devices:
             raise RuntimeError(f"dryrun_multichip: need {n_devices} cards, "
                                f"have {torch.cuda.device_count()}")
-    losses = multihost.spawn(_dryrun_rank, n_devices, device,
-                             timeout=DRYRUN_TIMEOUT_S)
+    ranks = multihost.spawn(_dryrun_rank, n_devices, device,
+                            timeout=DRYRUN_TIMEOUT_S)
     model, batch = _dryrun_setup(n_devices, torch.device(device))
     cfg = TrainConfig()
     want = float(train_step(model, make_optimizer(model, cfg), batch, 0,
                             torch.Generator(device=device), cfg)["total"])
+    losses = [r[0] for r in ranks]
     loss = losses[0]
     if not np.isfinite(loss) or len(set(losses)) != 1 or not np.isclose(
             loss, want, rtol=DRYRUN_LOSS_RTOL, atol=0.0):
@@ -405,4 +422,13 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> float:
                              f"{losses}, one process {want}")
     print(f"dryrun_multichip({n_devices}): DP OK, loss={loss:.4f} (one "
           f"process {want:.4f}), step=1")
+    fsdp_losses = [r[1] for r in ranks]
+    if fsdp_losses[0] is not None:
+        loss2 = fsdp_losses[0]
+        if not np.isfinite(loss2) or len(set(fsdp_losses)) != 1 or not (
+                abs(loss2 - loss) < 1e-3 + 1e-3 * abs(loss)):
+            raise AssertionError(f"dryrun_multichip({n_devices}): FSDP "
+                                 f"losses {fsdp_losses}, DP loss {loss}")
+        print(f"dryrun_multichip({n_devices}): FSDP(2x{n_devices // 2}) OK, "
+              f"loss={loss2:.4f}")
     return loss

@@ -15,8 +15,50 @@ runs each device (``parallel/multihost.py``):
   replica a device, an instance batch's rows split over them, as the
   reference's ``DataParallel`` eval wrap (``test.py:91-92``).
 
-FSDP (``make_mesh_2d``, the ``*_fsdp`` functions) is not ported yet: those
-names raise, naming ROADMAP.md queue 1, item 10.
+FSDP (ZeRO-3) over a 2-D ``(dp, fsdp)`` mesh, JAX's ``make_mesh_2d`` /
+``jit_train_step_fsdp``, is FSDP2's ``fully_shard`` over a ``DeviceMesh``:
+
+- ``make_mesh_2d`` names the axes ``("dp", "fsdp")``; rank ``r`` sits at
+  ``(r // fsdp, r % fsdp)``, the row-major order of JAX's
+  ``P((DATA_AXIS, FSDP_AXIS))``, so ``shard_batch_2d`` is ``shard_batch``
+  over the flattened mesh. Parameters are replicated over ``dp`` and
+  sharded over ``fsdp`` (hybrid sharding); each rank's loss is its rows'
+  mean and FSDP2 averages the gradients over the whole mesh, as DDP does.
+- ``fsdp_shardings`` places each parameter by JAX's rule
+  (``_fsdp_leaf_spec``): the largest axis, in JAX's layout of the weight,
+  that ``fsdp`` divides, ties to the earliest. FSDP2 cannot keep a
+  parameter replicated inside a unit: the leaves JAX replicates (under
+  ``FSDP_MIN_SIZE`` elements, or with no axis that ``fsdp`` divides) are
+  sharded on dim 0 here, padded where ``fsdp`` does not divide it.
+  Replicating them through ``ignored_params`` would leave their gradients
+  unreduced. The Adam moments take their parameter's placement; the
+  BatchNorm buffers stay whole on every rank (JAX's replicated
+  ``batch_stats``).
+- ``shard_state_fsdp`` gives every BatchNorm the whole world's statistics
+  (the batch is split over both axes) and applies ``fully_shard`` with
+  ``reshard_after_forward=True`` (GSPMD gathers each weight where it is
+  used) to each unit of ``fsdp_units``, then to the root. A unit is a
+  module whose ``forward`` is called: outside it, its parameters are
+  shards (``DTensor``), so no unit is a layer whose weight a parent reads
+  in its own code (``nn/layers.py::conv2d_nhwc`` / ``pointwise``, the
+  encoder's up_3 and final head, the SharedMLPs' folds). The units:
+
+  - the RGB encoder: each trunk stage (``layer1``..``layer4``), the trunk
+    (its stem and the unused classifier), PSP, ``up_1``, ``up_2``, then
+    the encoder itself (``up_3`` and ``final``, whose weights its own
+    ``forward`` reads);
+  - every SA and FP stage of each ``PointNet2MSG``;
+  - each head: ``implicit_transform``, ``main_estimator``,
+    ``cam_enhancer`` (IST-Net), ``pose_estimator_aux`` (PoseNetGT);
+  - IST-Net's ``world_enhancer.pose_estimator``, then ``world_enhancer``
+    itself, so that the frozen recipe's parameters, which get no
+    gradient, stay out of the trainable units' reduce-scatters;
+  - the root, which keeps nothing but what no unit holds.
+
+  No ``MixedPrecisionPolicy``: the compute policy (``nn/precision.py``)
+  casts inside the modules under bf16, and the parameters, gradients and
+  Adam state stay float32, as in JAX. The optimizer is built after
+  ``shard_state_fsdp``, on the sharded parameters.
 """
 
 from __future__ import annotations
@@ -24,13 +66,24 @@ from __future__ import annotations
 import contextlib
 import copy
 
+import math
+
 import torch
+import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from istnet_tpu_torch.nn.layers import BatchNorm
+from istnet_tpu_torch.nn.pointnet2_msg import PointNet2MSG
+from istnet_tpu_torch.nn.resnet_psp import ModifiedResnet
 
-FSDP_NOT_YET = ("FSDP (parallel: {fsdp: N > 1}) is not ported yet: "
-                "ROADMAP.md queue 1, item 10")
+DATA_AXIS = "dp"
+FSDP_AXIS = "fsdp"
+FSDP_MIN_SIZE = 2 ** 11
+# a weight's torch dims in the order of JAX's axes (``convert.py``'s
+# layouts): Linear (O, I) and Conv1d (O, I, 1) from (I, O), Conv2d OIHW
+# from HWIO; a 1x1 Conv2d from a Dense (I, O) keeps that order too, its
+# unit axes never being chosen
+JAX_AXIS_ORDER = {1: (0,), 2: (1, 0), 3: (1, 0, 2), 4: (2, 3, 1, 0)}
 
 
 def set_batch_norm_group(model: torch.nn.Module, group) -> int:
@@ -126,16 +179,106 @@ def eval_forward_dp(model: torch.nn.Module, devices):
     return forward
 
 
-def _fsdp_not_yet(name: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{name}: {FSDP_NOT_YET}")
-    refuse.__name__ = name
-    return refuse
+def make_mesh_2d(dp: int, fsdp: int, device_type: str = "cuda"):
+    """The ``(dp, fsdp)`` ``DeviceMesh`` over the process group, axes named
+    ``("dp", "fsdp")``, rank ``r`` at ``(r // fsdp, r % fsdp)``. One process
+    a device: the mesh covers the world."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if dp * fsdp > world:
+        raise ValueError(f"mesh {dp}x{fsdp} needs {dp * fsdp} devices, "
+                         f"have {world}")
+    if dp * fsdp < world:
+        raise ValueError(f"mesh {dp}x{fsdp} leaves {world - dp * fsdp} of "
+                         f"the {world} processes out; one process a device")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh_2d: no process group; join one with "
+                           "parallel.multihost.initialize")
+    return init_device_mesh(device_type, (dp, fsdp),
+                            mesh_dim_names=(DATA_AXIS, FSDP_AXIS))
 
 
-make_mesh_2d = _fsdp_not_yet("make_mesh_2d")
-fsdp_shardings = _fsdp_not_yet("fsdp_shardings")
-state_shardings_fsdp = _fsdp_not_yet("state_shardings_fsdp")
-shard_batch_2d = _fsdp_not_yet("shard_batch_2d")
-shard_state_fsdp = _fsdp_not_yet("shard_state_fsdp")
-jit_train_step_fsdp = _fsdp_not_yet("jit_train_step_fsdp")
+def _fsdp_leaf_dim(shape, fsdp_size: int) -> int | None:
+    """The torch dim that JAX's ``_fsdp_leaf_spec`` shards for a weight of
+    ``shape``: the largest axis in JAX's layout that ``fsdp_size`` divides,
+    ties to the earliest; None where JAX replicates the leaf (under
+    ``FSDP_MIN_SIZE`` elements, or no axis that ``fsdp_size`` divides)."""
+    shape = tuple(shape)
+    if not shape or math.prod(shape) < FSDP_MIN_SIZE:
+        return None
+    order = JAX_AXIS_ORDER.get(len(shape), tuple(range(len(shape))))
+    for i in sorted(range(len(order)), key=lambda i: -shape[order[i]]):
+        size = shape[order[i]]
+        if size % fsdp_size == 0 and size >= fsdp_size:
+            return order[i]
+    return None
+
+
+def fsdp_shardings(mesh, model: torch.nn.Module) -> dict:
+    """Each parameter's ``Shard(dim)`` over the mesh's ``fsdp`` axis, by
+    name: JAX's axis where JAX shards it, dim 0 where JAX replicates it
+    (FSDP2 shards every parameter)."""
+    from torch.distributed.tensor import Shard
+
+    fsdp = mesh[FSDP_AXIS].size()
+    return {name: Shard(_fsdp_leaf_dim(p.shape, fsdp) or 0)
+            for name, p in model.named_parameters()}
+
+
+def state_shardings_fsdp(mesh, model: torch.nn.Module) -> dict:
+    """The train state's plan by name: ``"params"`` (``fsdp_shardings``;
+    each Adam moment takes its parameter's) and ``"buffers"``, the
+    BatchNorm statistics, ``Replicate()`` on every rank."""
+    from torch.distributed.tensor import Replicate
+
+    return {"params": fsdp_shardings(mesh, model),
+            "buffers": {name: Replicate()
+                        for name, _ in model.named_buffers()}}
+
+
+def shard_batch_2d(batch, rank: int, world: int):
+    """Rank ``rank``'s rows of a global batch split over both mesh axes
+    (JAX's ``P((DATA_AXIS, FSDP_AXIS))``): ``shard_batch`` over the
+    flattened mesh."""
+    return shard_batch(batch, rank, world)
+
+
+def fsdp_units(model: torch.nn.Module) -> list:
+    """The modules ``shard_state_fsdp`` shards one by one, children before
+    their parents (the module docstring lists them)."""
+    def units_of(m):
+        if isinstance(m, ModifiedResnet):
+            net = m.model
+            return [net.feats.layer1, net.feats.layer2, net.feats.layer3,
+                    net.feats.layer4, net.feats, net.psp, net.up_1,
+                    net.up_2, m]
+        if isinstance(m, PointNet2MSG):
+            return [*m.SA_modules, *m.FP_modules]
+        if m is getattr(model, "world_enhancer", None):
+            return [*units_of(m.extractor), m.pose_estimator, m]
+        return [m]
+    return [u for child in model.children() for u in units_of(child)]
+
+
+def shard_state_fsdp(mesh, model: torch.nn.Module) -> torch.nn.Module:
+    """``model`` (on this process's device, every rank holding the same
+    values) sharded in place over ``mesh`` by ``fsdp_shardings`` and
+    returned, its BatchNorms' statistics over the whole world. Build the
+    optimizer after this call."""
+    from torch.distributed.fsdp import fully_shard
+
+    plan = fsdp_shardings(mesh, model)
+    placement = {id(p): plan[name] for name, p in model.named_parameters()}
+    set_batch_norm_group(model, dist.group.WORLD)
+    for unit in (*fsdp_units(model), model):
+        fully_shard(unit, mesh=mesh, reshard_after_forward=True,
+                    shard_placement_fn=lambda p: placement[id(p)])
+    return model
+
+
+def is_sharded(model: torch.nn.Module) -> bool:
+    """Whether ``model`` went through ``shard_state_fsdp``."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(model, FSDPModule)

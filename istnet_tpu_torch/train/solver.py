@@ -35,12 +35,18 @@ Data parallel: in a process group (``parallel/multihost.py``, one process
 a device) the Solver wraps the model with ``parallel.mesh.wrap_dp``
 whatever the world size (global-batch BatchNorm, averaged gradients), its
 loaders carrying this rank's share of the global batch (``cli/train.py``).
+FSDP: ``parallel: {fsdp: N [, dp: M]}`` with N > 1 lays the world out as a
+``(dp, fsdp)`` mesh (``fsdp_mesh_shape``, JAX's checks and errors; ``dp``
+defaults to ``world // fsdp``); the Solver then takes a model that
+``parallel.mesh.shard_state_fsdp`` sharded over that mesh and an optimizer
+built after it, wraps nothing, and writes sharded checkpoints.
 Each rank's dropout and device-pipeline draws come from a generator seeded
 from ``rd_seed`` and its rank, so that ranks draw differently for different
 rows, as JAX draws over the global batch. The loss parts are averaged over
 the ranks when they are drained (one small collective, ``pipeline_depth``
 steps late): every rank then logs JAX's global-batch metrics. Rank 0 alone
-feeds the scalar writer; checkpoints are rank 0's, behind a barrier.
+feeds the scalar writer; plain checkpoints are rank 0's, behind a
+barrier.
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ from istnet_tpu_torch.data.device_preprocess import make_train_preprocess
 from istnet_tpu_torch.nn import precision
 from istnet_tpu_torch.parallel import multihost
 from istnet_tpu_torch.parallel.collectives import all_reduce_mean
-from istnet_tpu_torch.parallel.mesh import FSDP_NOT_YET, wrap_dp
+from istnet_tpu_torch.parallel.mesh import is_sharded, wrap_dp
 from istnet_tpu_torch.train import checkpoints
 from istnet_tpu_torch.train.train_state import TrainConfig, train_step
 from istnet_tpu_torch.utils.logging import LogBuffer, MetricWriter
@@ -137,27 +143,68 @@ def device_pipeline(config, float_dtype: torch.dtype):
     return preprocess_fn, augment_fn
 
 
+def fsdp_mesh_shape(parallel, world: int,
+                    global_batch: int) -> tuple[int, int] | None:
+    """``(dp, fsdp)`` of a config's ``parallel: {fsdp: N [, dp: M]}`` over
+    ``world`` processes (one a device), None where ``fsdp`` is absent or
+    1 (DDP or one device). Raises JAX's errors (``istnet_tpu/train/
+    solver.py:87-108``): ``fsdp`` over the device count, a mesh that does
+    not cover the world, a global batch the mesh does not divide."""
+    par = parallel or {}
+    fsdp = int(par.get("fsdp", 1))
+    if fsdp <= 1:
+        return None
+    dp = int(par.get("dp", 0)) or world // fsdp
+    if dp < 1:
+        raise ValueError(f"parallel.fsdp = {fsdp} exceeds the {world} "
+                         f"available devices (dp computes to {dp}); use "
+                         "fsdp <= device_count")
+    if dp * fsdp > world:
+        raise ValueError(f"mesh {dp}x{fsdp} needs {dp * fsdp} devices, "
+                         f"have {world}")
+    if dp * fsdp != world:
+        raise ValueError(f"multi-process mesh must cover all devices: "
+                         f"dp*fsdp = {dp * fsdp} != {world}")
+    if global_batch % (dp * fsdp):
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"mesh size {dp}x{fsdp}")
+    return dp, fsdp
+
+
 class Solver:
     """Trains ``model`` (in train mode, on its device) with ``optimizer``
     built by ``make_optimizer`` for ``train_cfg``. ``config`` is the YAML
     config (``max_epoch``, ``per_write``, ``pipeline_depth``, ``rd_seed``,
     ``train_dataset``, ``parallel``, ``compute_dtype``); ``step`` is the
     step count to start from (a resumed run's), ``start_epoch`` the first
-    epoch to run. In a process group ``self.model`` is the DDP wrapper."""
+    epoch to run. In a process group ``self.model`` is the DDP wrapper,
+    or under FSDP the sharded model as given."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  train_cfg: TrainConfig, config, syn_loader=None,
                  real_loader=None, logger=None, log_dir: str | None = None,
                  start_epoch: int = 1, step: int = 0):
-        par = config.get("parallel") or {}
-        if int(par.get("fsdp", 1)) > 1:
-            raise NotImplementedError(FSDP_NOT_YET)
+        self.logger = logger
         self.rank = multihost.process_index()
         self.parallel = torch.distributed.is_initialized()
-        self.model = wrap_dp(model) if self.parallel else model
+        world = multihost.process_count()
+        local_bs = sum(loader.batch_size for loader in (syn_loader, real_loader)
+                       if loader is not None) or 1
+        mesh_shape = fsdp_mesh_shape(config.get("parallel"), world,
+                                     local_bs * world)
+        if mesh_shape is not None:
+            if not is_sharded(model):
+                raise ValueError("parallel.fsdp > 1 takes a model sharded by "
+                                 "parallel.shard_state_fsdp, and an optimizer "
+                                 "built after it")
+            dp, fsdp = mesh_shape
+            self._log(f"parallel: FSDP mesh dp={dp} fsdp={fsdp} ({world} "
+                      "process(es))")
+            self.model = model
+        else:
+            self.model = wrap_dp(model) if self.parallel else model
         self.optimizer = optimizer
         self.train_cfg = train_cfg
-        self.logger = logger
         self.syn_loader = syn_loader
         self.real_loader = real_loader
         self.log_buffer = LogBuffer()

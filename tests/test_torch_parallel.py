@@ -17,8 +17,7 @@ global batch of B = 4, dropout off, weights bridged from JAX's trees as
   against the port's one-process step on the whole batch to 1e-10.
 - A group of one rank is bit-equal to no group; ``eval_forward_dp`` over
   two CPU replicas equals the unsplit forward; ``multihost.initialize`` is
-  a no-op unconfigured and raises when a configured handshake fails; the
-  FSDP names raise with their ROADMAP item.
+  a no-op unconfigured and raises when a configured handshake fails.
 """
 
 import datetime
@@ -198,15 +197,20 @@ def test_a_group_of_one_rank_is_bit_equal_to_no_group(tmp_path):
 # The DDP step
 # ---------------------------------------------------------------------------
 
-def _jax_dp_step(trees, arch: str, freeze: bool, batch: dict):
+def _jax_dp_step(trees, arch: str, freeze: bool, batch: dict,
+                 mesh_2d: tuple[int, int] | None = None):
     """One step of JAX's ``jit_train_step_dp`` over a 2-device CPU mesh
-    under x64: the metrics and the exported updated state."""
+    under x64 (with ``mesh_2d = (dp, fsdp)``: ``jit_train_step_fsdp`` over
+    ``make_mesh_2d(dp, fsdp)``): the metrics and the exported updated
+    state."""
     from istnet_tpu.models.ist_net import ISTNet as JaxISTNet
     from istnet_tpu.models.ist_net import supervised_loss as jax_loss
     from istnet_tpu.models.posenet_gt import PoseNetGT as JaxPoseNetGT
     from istnet_tpu.models.posenet_gt import supervised_loss as jax_pgt_loss
-    from istnet_tpu.parallel import (jit_train_step_dp, make_mesh, replicate,
-                                     shard_batch)
+    from istnet_tpu.parallel import (jit_train_step_dp, jit_train_step_fsdp,
+                                     make_mesh, make_mesh_2d, replicate,
+                                     shard_batch, shard_batch_2d,
+                                     shard_state_fsdp)
     from istnet_tpu.train.train_state import (
         create_train_state,
         make_optimizer as jax_make_optimizer,
@@ -230,14 +234,19 @@ def _jax_dp_step(trees, arch: str, freeze: bool, batch: dict):
 
             def loss(e, lbl):
                 return jax_loss(e, lbl, cfg.gamma1, cfg.gamma2, freeze)
-        mesh_ = make_mesh(WORLD)
-        step = jit_train_step_dp(make_train_step(model, loss, tx, jcfg.bn),
-                                 mesh_)
-        state = replicate(mesh_, create_train_state(params, stats, tx))
-        state, metrics = step(
-            state, shard_batch(mesh_, jax.tree_util.tree_map(jnp.asarray,
-                                                             batch)),
-            jax.random.PRNGKey(0))
+        step_fn = make_train_step(model, loss, tx, jcfg.bn)
+        state = create_train_state(params, stats, tx)
+        batch = jax.tree_util.tree_map(jnp.asarray, batch)
+        if mesh_2d is None:
+            mesh_ = make_mesh(WORLD)
+            step = jit_train_step_dp(step_fn, mesh_)
+            state, batch = replicate(mesh_, state), shard_batch(mesh_, batch)
+        else:
+            mesh_ = make_mesh_2d(*mesh_2d)
+            step = jit_train_step_fsdp(step_fn, mesh_, state)
+            state = shard_state_fsdp(mesh_, state)
+            batch = shard_batch_2d(mesh_, batch)
+        state, metrics = step(state, batch, jax.random.PRNGKey(0))
         metrics = {k: float(v) for k, v in metrics.items()}
         return metrics, state_dict_from_jax(
             {"params": jax.device_get(state.params),
@@ -271,16 +280,22 @@ def test_two_rank_step_matches_jax_dp_step(dp_runs, monkeypatch, name):
 
 @pytest.mark.parametrize("name", list(RECIPES))
 def test_two_rank_step_matches_the_one_process_step(dp_runs, name):
-    """The 2-rank step against ``train_step`` on the whole batch in one
-    process. The gradients (the ranks' average) normwise and the updated
-    state per tensor within 1e-10 of the largest value (measured <= 4.9e-13
-    and 5.1e-11); the loss parts within 1e-6 relative (measured 1.3e-7):
-    the feature and ``qo`` terms are float32 on both sides, as JAX's are,
-    so the mean of the ranks' two float32 means meets one float32 mean of
-    the batch only to float32 rounding. The per-tensor gradient is not a
-    measure here: the RGB branch's conv biases before a train-mode BN have
-    a gradient of 0 but for rounding."""
     tmp, _ = dp_runs
+    assert_matches_one_process(_rank_outputs(tmp, name)[0], name)
+
+
+def assert_matches_one_process(r0: dict, name: str) -> None:
+    """A rank's step (``torch_dp_worker`` or ``torch_fsdp_worker``: the
+    loss parts averaged over the ranks, the gradients and the updated
+    state whole) against ``train_step`` on the whole batch in one process.
+    The gradients (the ranks' average) normwise and the updated state per
+    tensor within 1e-10 of the largest value (2 DDP ranks measured <=
+    4.9e-13 and 5.1e-11); the loss parts within 1e-6 relative (measured
+    1.3e-7): the feature and ``qo`` terms are float32 on both sides, as
+    JAX's are, so the mean of the ranks' float32 means meets one float32
+    mean of the batch only to float32 rounding. The per-tensor gradient is
+    not a measure here: the RGB branch's conv biases before a train-mode
+    BN have a gradient of 0 but for rounding."""
     arch, freeze, _ = RECIPES[name]
     _, state, cfg, batch = _recipe(name)
     precision.set_compute_dtype(torch.float64)
@@ -291,7 +306,6 @@ def test_two_rank_step_matches_the_one_process_step(dp_runs, name):
         parts = train_step(model, opt, _torch(batch), 0, torch.Generator(), cfg)
     finally:
         precision.set_compute_dtype(torch.float32)
-    r0, _ = _rank_outputs(tmp, name)
     assert set(r0["parts"]) == set(parts)
     for k, v in parts.items():
         assert _rel(r0["parts"][k], v) <= 1e-6, k
@@ -309,7 +323,7 @@ def test_two_rank_step_matches_the_one_process_step(dp_runs, name):
 
 
 # ---------------------------------------------------------------------------
-# The data-parallel eval forward, the process group, FSDP
+# The data-parallel eval forward, the process group
 # ---------------------------------------------------------------------------
 
 def test_eval_forward_dp_over_two_cpu_replicas_equals_the_unsplit_forward():
@@ -358,11 +372,3 @@ def test_initialize_raises_when_a_configured_handshake_fails(monkeypatch):
     monkeypatch.delenv("MASTER_PORT")
     with pytest.raises(RuntimeError, match="MASTER_PORT"):
         multihost.initialize("cpu")
-
-
-def test_the_fsdp_names_raise_with_their_roadmap_item():
-    for fn in (mesh.make_mesh_2d, mesh.fsdp_shardings, mesh.shard_batch_2d,
-               mesh.state_shardings_fsdp, mesh.shard_state_fsdp,
-               mesh.jit_train_step_fsdp):
-        with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-            fn(None)

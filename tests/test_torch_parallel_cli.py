@@ -12,9 +12,15 @@ over the port's synthetic trees:
   counterpart of the JAX package's ``test_two_process_cli_train_smoke``,
   DP only): the same losses step by step, a log file a rank;
 - ``cli/test.py --device cpu --devices 2`` against ``--devices 1``;
-- ``entry.dryrun_multichip(2)`` over two CPU processes.
+- ``cli/train.py --devices 4`` with ``parallel: {dp: 2, fsdp: 2}`` (the
+  counterpart of the JAX package's ``test_cli_train_fsdp``), resumed from
+  the two-rank DDP run's epoch-5 checkpoint: JAX's log lines, the sharded
+  epoch-10 checkpoint, then ``cli/test.py`` on it in one process;
+- ``entry.dryrun_multichip`` over two CPU processes (DP), and over four
+  (DP, then FSDP over a (2, 2) mesh).
 """
 
+import contextlib
 import glob
 import json
 import os
@@ -221,3 +227,101 @@ def test_dryrun_multichip_over_two_cpu_processes():
     from istnet_tpu_torch.entry import dryrun_multichip
 
     assert np.isfinite(dryrun_multichip(2, device="cpu"))
+
+
+def test_dryrun_multichip_over_four_cpu_processes_runs_fsdp(capsys):
+    from istnet_tpu_torch.entry import dryrun_multichip
+
+    assert np.isfinite(dryrun_multichip(4, device="cpu"))
+    out = capsys.readouterr().out
+    assert "dryrun_multichip(4): DP OK" in out
+    assert "dryrun_multichip(4): FSDP(2x2) OK, loss=" in out
+
+
+# ---------------------------------------------------------------------------
+# FSDP through cli/train.py
+# ---------------------------------------------------------------------------
+
+FSDP_EXTRA = {"syn_bs": 4, "real_bs": 4, "per_write": 1,
+              "parallel": "{dp: 2, fsdp: 2}"}
+
+
+@pytest.fixture(scope="module")
+def fsdp_spawned(spawned, root, tmp_path_factory):  # noqa: F811
+    """``cli/train.py --devices 4`` with ``parallel: {dp: 2, fsdp: 2}`` and
+    a global batch of 4 + 4, resumed from the DDP run's epoch-5 checkpoint
+    (``spawned``) for epochs 6-10 of 1 step (the sharded epoch-10
+    checkpoint)."""
+    from istnet_tpu_torch.cli import train as cli_train
+
+    _, _, dp_log_dir, _, _ = spawned
+    tmp = tmp_path_factory.mktemp("fsdp_cli")
+    log_dir = str(tmp / "log")
+    os.makedirs(os.path.join(log_dir, "ckpt"))
+    os.symlink(os.path.join(dp_log_dir, "ckpt", "5"),
+               os.path.join(log_dir, "ckpt", "5"))
+    cfg = _write_cfg(tmp / "f10.yaml", 10, 1, **FSDP_EXTRA)
+    with _stderr_to(tmp / "log.txt"):
+        run = cli_train.main(["--config", cfg, "--checkpoint_epoch", "5",
+                              "--data_dir", str(root / "data"),
+                              "--log_dir", log_dir, "--device", "cpu",
+                              "--devices", "4"])
+    return cfg, log_dir, run, (tmp / "log.txt").read_text()
+
+
+@contextlib.contextmanager
+def _stderr_to(path):
+    """File descriptor 2 sent to ``path`` for the block: the spawned ranks
+    inherit it, and their loggers print there (the log files keep
+    warnings only)."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 2)
+    try:
+        yield
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+
+
+def test_cli_train_fsdp_over_four_ranks_checkpoints_and_resumes(
+        fsdp_spawned, quiet_logger):  # noqa: F811
+    """The counterpart of ``tests/test_cli_train.py::test_cli_train_fsdp``
+    (JAX's log lines), on four CPU ranks: the DDP run's plain epoch-5
+    checkpoint read into the sharded model and optimizer, epochs 6-10 from
+    step 5, every rank's trained model the same, the epoch-10 checkpoint
+    sharded (a DCP file a rank)."""
+    _, log_dir, run, logs = fsdp_spawned
+    assert "parallel: FSDP mesh dp=2 fsdp=2 (4 process(es))" in logs
+    assert "resumed from epoch 5 (sharded restore)" in logs
+    assert [(r["epoch"], r["step"]) for r in run.records] == [
+        (e, e - 1) for e in range(6, 11)]
+    assert all(np.isfinite(r["total"]) for r in run.records)
+    assert len(run.digests) == 4 and len(set(run.digests)) == 1
+    assert "epoch 10 iter 1/1" in logs and "nan" not in logs.lower()
+    assert "saved checkpoint at epoch 10" in logs
+    ckpt = os.path.join(log_dir, "ckpt")
+    assert checkpoints.latest_epoch(ckpt) == 10
+    assert sorted(os.listdir(os.path.join(ckpt, "10"))) == [
+        ".metadata", *(f"__{r}_0.distcp" for r in range(4)),
+        checkpoints.META]
+
+
+def test_cli_test_in_one_process_on_the_fsdp_checkpoint(
+        fsdp_spawned, root, quiet_logger):  # noqa: F811
+    """``cli/test.py`` reads the sharded epoch-10 checkpoint whole in one
+    process without a group: the reference keys, finite APs."""
+    from istnet_tpu_torch.cli import test as cli_test
+
+    cfg, log_dir, _, _ = fsdp_spawned
+    saved = checkpoints.restore_for_eval(os.path.join(log_dir, "ckpt"), 10)
+    assert set(saved["model"]) == set(ISTNet(sa_npoints=(32, 16, 8, 8))
+                                      .state_dict())
+    assert saved["step"] == 10 and saved["meta"]["epoch"] == 10
+    iou, pose = cli_test.main(["--config", cfg, "--data_dir", str(root),
+                               "--log_dir", log_dir, "--test_epoch", "10",
+                               "--device", "cpu"])
+    assert not torch.distributed.is_initialized()
+    assert np.isfinite(iou).all() and np.isfinite(pose).all()

@@ -287,13 +287,14 @@ def test_solver_losses_match_jax_train_step(root, tmp_path, monkeypatch):
 
 
 def test_solver_refuses_what_is_not_ported(root):
-    """FSDP names its ROADMAP item (queue 1, item 10); the device
+    """FSDP over more devices than a single process has, and the device
     augmentation with a host-only augmentation (box cage, point noise,
-    non-linear) raises the JAX package's ValueError."""
+    non-linear), raise the JAX package's ValueErrors (the first is the
+    counterpart of ``tests/test_fsdp.py:243``)."""
     model = torch.nn.Linear(2, 2)
     cfg = TrainConfig()
     opt = make_optimizer(model, cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="exceeds the 1 available devices"):
         Solver(model, opt, cfg, Config({"max_epoch": 1,
                                          "parallel": {"fsdp": 4}}))
     for k in ("aug_bc_pro", "aug_pc_pro", "aug_nl_pro"):
