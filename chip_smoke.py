@@ -225,6 +225,19 @@ then FSDP (``parallel/mesh.py::shard_state_fsdp``, ``fully_shard`` over a
    phase 25 under FSDP (gloo on ``cuda:0``), the ranks' gathered state one
    digest, each rank's peak memory beside phase 25's.
 
+then the bench (``bench_torch.py`` and ``tools/{train,eval}_bench_torch.py``):
+
+36. bench: kernels 1-5 against their plain versions at B = 128 under
+   float32 and bf16 (the bench's new shapes), timed there; the bench's
+   measurements at 2 rounds of few calls (both policies at B = 32 and
+   128, the device-pipeline and bare train steps), the launch counts reset
+   before and read after: every rate finite and above 0, ``bench.py``'s
+   keys in the record, every kernel of the paths launched; the bench's
+   B = 32 forward bit-equal to phase 4's model under each policy on the
+   same seed; rows 0-31 of the B = 128 forward within phase 5's bound of
+   the B = 32 forward of those rows; the three eval loops of
+   ``tools/eval_bench_torch.py`` over 64 images, every pose finite.
+
 Before the last line come the card's name and power limit (first line) and a
 JSON object of per-kernel results with each kernel's bound; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3854,6 +3867,128 @@ def phase_training(device, bare: float):
             torchrun_counts)
 
 
+BENCH_BATCH = 128
+BENCH_ROUNDS, BENCH_ITERS = 2, 3          # a round: BENCH_ITERS calls
+BENCH_TRAIN_ITERS = 2
+BENCH_EVAL_IMAGES = 64
+# rows 0..31 of the B=128 forward against the B=32 forward of those rows:
+# phase 5's bounds under each policy
+BENCH_ROW_TOL = {"float32": CPU_ATOL, "bfloat16": BF16_CPU_ATOL}
+# every kernel the bench's paths launch: the eval forward's (1-5, 5 under
+# bf16 only), the train step's backward (8, 10, the scatters) and the
+# device pipeline's fill (11)
+BENCH_KERNELS = ("fps", "ball_query_group", "fp_interpolate", "fold_upsample",
+                 "sa_fused", "ball_query", "group_scatter", "three_nn",
+                 "interp_scatter", "depth_fill")
+
+
+def phase_bench(device, models: dict) -> tuple:
+    """Phase 36: the bench's path (``bench_torch.py``, ``tools/
+    {train,eval}_bench_torch.py``) on the card, at few rounds. Kernels 1-5
+    against their plain versions at B=128 under both policies (the bench's
+    new shapes) and timed there; then ``bench_torch.measure`` (both
+    policies at B=32 and 128, the train steps) between the launch counts'
+    reset and read: every rate finite and above 0, the record carrying
+    ``bench.py``'s keys, every kernel of ``BENCH_KERNELS`` launched; the
+    bench's B=32 forward under each policy bit-equal to ``models``' (phases
+    4's) on the same seed; rows 0-31 of the B=128 forward within
+    ``BENCH_ROW_TOL`` of the B=32 forward of those rows; the eval loops of
+    ``tools/eval_bench_torch.py`` over BENCH_EVAL_IMAGES images in all
+    three modes, every pkl's poses finite. Returns the launches and, per
+    policy, the B=128 kernel cases' errors and times."""
+    import math
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import bench_torch
+    import eval_bench_torch
+    from istnet_tpu_torch import ops
+    from istnet_tpu_torch.entry import make_inputs
+    errs, times = {}, {}
+    with policy(torch.float32):
+        cases = {name: [(args, True) for args in arg_list] for name, arg_list
+                 in kernel_cases(device, BENCH_BATCH).items()}
+        errs["float32"] = phase_kernels(cases, tag=f"bench B={BENCH_BATCH} ")
+        times["float32"] = time_kernels(cases, f"bench B={BENCH_BATCH} ")
+    with policy(torch.bfloat16):
+        cases = {name: case_list[:len(case_list) - (name == "sa_fused")]
+                 for name, case_list
+                 in kernel_cases_bf16(device, BENCH_BATCH).items()}
+        errs["bfloat16"] = phase_kernels(cases, bf16=True,
+                                         tag=f"bench B={BENCH_BATCH} ")
+        times["bfloat16"] = time_kernels(cases,
+                                         f"bench B={BENCH_BATCH} bf16 ")
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    m = bench_torch.measure(BENCH_ROUNDS, BENCH_ITERS, BENCH_ROUNDS,
+                            BENCH_TRAIN_ITERS, device)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    record = bench_torch.make_record(m, bench_torch.card_name_and_limit())
+    print(f"[bench] record: {json.dumps(record)}")
+    bad = [r for r in bench_torch.rates(record)
+           if not (math.isfinite(r) and r > 0)]
+    missing = {"metric", "value", "unit", "vs_baseline", "batch", "b32_value",
+               "b128_value", "train_steps_per_sec", "train_samples_per_sec",
+               "train_batch"} - set(record)
+    unlaunched = [k for k in BENCH_KERNELS if not counts[k]]
+    print(f"[bench] launches over the bench's run: {counts}")
+    if bad or missing or unlaunched:
+        raise AssertionError(f"bench: rates {bad}, keys missing {missing}, "
+                             f"kernels not launched {unlaunched}")
+    for key in sorted(k for k in record if k.startswith("forward_")):
+        r = record[key]
+        print(f"[bench] {key}: {r['inf_per_s']:.1f} inf/s ({r['ms']:.3f} ms, "
+              f"rounds {r['ms_min']:.3f}-{r['ms_max']:.3f}), peak "
+              f"{r['peak_gib']:.2f} GiB, busy {r['busy_share']:.1%}")
+
+    for dtype, model in models.items():
+        label = str(dtype).removeprefix("torch.")
+        fn, _, _ = bench_torch.forward_case(dtype, BATCH, device)
+        got = fn()
+        with policy(dtype), torch.inference_mode():
+            want = model(make_inputs(BATCH, seed=0, device=device))
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        fn128, bench_model, inp = bench_torch.forward_case(
+            dtype, BENCH_BATCH, device)
+        out128 = fn128()
+        with policy(dtype), torch.inference_mode():
+            out32 = bench_model({k: v[:BATCH] for k, v in inp.items()})
+        rows = max((out128[k][:BATCH].float() - v.float()).abs().max().item()
+                   for k, v in out32.items())
+        print(f"[bench] {label}: the bench's B={BATCH} forward against phase "
+              f"4's model on seed 0: {'bit-equal' if not differ else differ}"
+              f"; rows 0-{BATCH - 1} of B={BENCH_BATCH} against B={BATCH} "
+              f"of those rows: max abs {rows:.3g} (bound "
+              f"{BENCH_ROW_TOL[label]})")
+        if differ or not rows <= BENCH_ROW_TOL[label]:
+            raise AssertionError(f"bench {label}: outputs {differ} differ "
+                                 f"from phase 4's; B={BENCH_BATCH} rows "
+                                 f"{rows}")
+        del bench_model, fn128, out128
+
+    with tempfile.TemporaryDirectory() as work:
+        res = eval_bench_torch.run(eval_bench_torch.MODES, BENCH_EVAL_IMAGES,
+                                   64, device, work)
+        for mode in eval_bench_torch.MODES:
+            save = os.path.join(work, "res_" + mode)
+            for name in os.listdir(save):
+                with open(os.path.join(save, name), "rb") as f:
+                    rts = pickle.load(f)["pred_RTs"]
+                if not np.isfinite(rts).all():
+                    raise AssertionError(f"eval bench {mode}: {name} holds "
+                                         f"non-finite poses")
+    print(f"[bench] eval loops over {BENCH_EVAL_IMAGES} images: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in res.items()
+                      if k.endswith("per_sec"))
+          + " images/s; every pkl's poses finite")
+    return counts, errs, times
+
+
 def main() -> int:
     device_info = phase_device()
     import torch
@@ -4068,6 +4203,20 @@ def main() -> int:
            times_t, list(train_cases))
     record_split("fsdp world 1 bf16", errs_tb, fsdp_counts["bfloat16"],
                  times_tb, cases_tb)
+
+    # phase 36: the bench's path, kernels 1-5 at its B=128 shapes
+    seconds = {}
+    bench_counts, errs_b, times_b = clocked(
+        "36 bench", phase_bench, device,
+        {torch.float32: model, torch.bfloat16: model16})
+    print(f"[phase 36] {seconds['36 bench']:.1f} s")
+    record(f"bench B={BENCH_BATCH}", "float32", errs_b["float32"],
+           bench_counts, times_b["float32"], list(times_b["float32"]))
+    record(f"bench B={BENCH_BATCH} bf16", "bfloat16", errs_b["bfloat16"],
+           bench_counts, times_b["bfloat16"], list(times_b["bfloat16"]))
+    record("bench train", "float32", errs_d, bench_counts, times_d,
+           ["depth_fill", "ball_query", "group_scatter", "three_nn",
+            "interp_scatter"])
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device_info}))

@@ -132,6 +132,26 @@ def build_test_tree(data_dir: str, n_scenes: int = 2, n_inst: int = 2) -> None:
     _write_models(os.path.join(data_dir, "data"), ("real_test.pkl",))
 
 
+def build_real275_scale_tree(data_dir: str, n_images: int) -> None:
+    """A test set of REAL275's size (2,754 images for the eval bench) that
+    costs the host a real run's work per image: one written scene
+    (``scene_1/00000``, 2 instances), one segmentation pkl per image, and
+    every other image's color, depth and coord PNGs symlinked to the
+    scene's, so that each image is loaded and decoded
+    (``tools/eval_bench.py::build_real275_scale_tree``)."""
+    test_dir = os.path.join(data_dir, "data", "Real", "test", "scene_1")
+    seg_dir = os.path.join(data_dir, "data", "segmentation_results",
+                           "test_trainedwithMask")
+    gts = write_scene(test_dir, "00000", seed=0, coord=True)
+    for i in range(n_images):
+        write_seg_result(seg_dir, gts, f"{i:05d}", scene="scene_1")
+    for i in range(1, n_images):
+        for suffix in ("_color.png", "_depth.png", "_coord.png"):
+            dst = os.path.join(test_dir, f"{i:05d}{suffix}")
+            if not os.path.exists(dst):
+                os.symlink(os.path.join(test_dir, f"00000{suffix}"), dst)
+
+
 def _small_rotation(seed: int) -> np.ndarray:
     """A modest random rotation matrix (Rodrigues of a small axis-angle)."""
     rng = np.random.RandomState(seed)

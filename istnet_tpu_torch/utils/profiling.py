@@ -18,10 +18,18 @@ in PyTorch's idiom, with JAX's names and units:
   call.
 - ``cuda_ms`` and ``device_us``: CUDA-event and profiler timings of a
   callable on the card (``chip_smoke.py`` and the tools read them).
+- ``rounds_ms``: ms a call over several rounds of back-to-back calls, one
+  synchronise a round (``bench_torch.py`` and its tools).
+- ``busy_and_span``, ``device_kernels``, ``owner_ranges``, ``attribute``,
+  ``attribute_rows`` and ``print_attribution``: a profile's device busy
+  share, and its device time by owning module and by kind (from the
+  profiler's event tree, or from a trace's rows;
+  ``tools/profile_{train,fwd}_torch.py``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import glob
@@ -109,6 +117,38 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rounds_ms(fn, rounds: int, iters: int, warmup: int = 1,
+              device: str | torch.device = "cuda") -> dict:
+    """Milliseconds a call of ``fn()`` over ``rounds`` rounds of ``iters``
+    back-to-back calls, after ``warmup`` calls, the collector off: on the
+    card CUDA events around each round and one synchronise at its end, so
+    that nothing inside a round waits for the device; on the CPU (a
+    rehearsal, no device time) the host clock. Returns ``{"rounds": [ms a
+    call, round by round], "median", "min", "max"}``."""
+    on_card = torch.device(device).type == "cuda"
+    for _ in range(warmup):
+        fn()
+    per_call = []
+    with no_gc():
+        for _ in range(rounds):
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(iters):
+                    fn()
+                end.record()
+                end.synchronize()
+                per_call.append(start.elapsed_time(end) / iters)
+            else:
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                per_call.append((time.perf_counter() - t0) * 1e3 / iters)
+    return {"rounds": per_call, "median": statistics.median(per_call),
+            "min": min(per_call), "max": max(per_call)}
+
+
 def device_us(fn, iters: int = 10) -> dict:
     """Device microseconds a call by kernel name (torch.profiler's device
     events): what the card spends, whatever the host takes to launch it.
@@ -130,8 +170,8 @@ def device_us(fn, iters: int = 10) -> dict:
     spans: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = re.search(r"[A-Za-z0-9_]*_kernel[A-Za-z0-9_]*|$",
-                             e.name).group(0) or "other"
+            m = _KERNEL_NAME.search(e.name)
+            name = m.group(0) if m else "other"
             spans.setdefault(name, []).append(
                 (e.time_range.start, e.time_range.end - e.time_range.start))
     sums = {}
@@ -236,3 +276,206 @@ def aggregate_ops(rows: list[dict], key: str = "op", top: int = 30,
         a["dur_us"] = round(a["dur_us"] / calls, 1)
         a["n"] = a["n"] // calls or a["n"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Device time by owner (torch.profiler events)
+# ---------------------------------------------------------------------------
+
+TAG = "owner:"
+REDUCTIONS = ("sum", "mean", "var", "norm", "max", "amax", "min", "std")
+_KERNEL_NAME = re.compile(r"[A-Za-z0-9_]*_kernel[A-Za-z0-9_]*")
+
+
+def busy_and_span(intervals) -> tuple[float, float]:
+    """Union length and extent of ``(start, end)`` intervals."""
+    intervals = sorted(intervals)
+    busy, (lo, hi) = 0.0, intervals[0]
+    first = lo
+    last = max(end for _, end in intervals)
+    for start, end in intervals[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    return busy + hi - lo, last - first
+
+
+@contextlib.contextmanager
+def owner_ranges(modules: dict, functions=()):
+    """``record_function`` ranges naming the owners: ``TAG + name`` around
+    the forward of each module of ``modules`` (``{module: name}``) and
+    around each call of the functions ``functions`` names (``(object,
+    attribute, name)``: ``object.attribute`` is wrapped for the block)."""
+    from torch.profiler import record_function
+
+    open_ranges = {}
+    hooks = []
+
+    def enter(module, _):
+        rf = record_function(TAG + modules[module])
+        rf.__enter__()
+        open_ranges.setdefault(id(module), []).append(rf)
+
+    def leave(module, _, __):
+        open_ranges[id(module)].pop().__exit__(None, None, None)
+
+    for m in modules:
+        hooks.append(m.register_forward_pre_hook(enter))
+        hooks.append(m.register_forward_hook(leave))
+
+    def wrap(fn, name):
+        def wrapped(*a, **k):
+            with record_function(TAG + name):
+                return fn(*a, **k)
+        return wrapped
+    # (object, attribute, its own value or None where it comes from the
+    # object's class, as a bound method does)
+    saved = [(obj, attr, vars(obj).get(attr)) for obj, attr, _ in functions]
+    for obj, attr, name in functions:
+        setattr(obj, attr, wrap(getattr(obj, attr), name))
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+        for obj, attr, own in saved:
+            if own is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, own)
+
+
+def _owner(evt) -> str | None:
+    while evt is not None:
+        if evt.name.startswith(TAG):
+            return evt.name[len(TAG):]
+        if evt.name.startswith("Optimizer.step#"):
+            return "Adam"
+        evt = evt.cpu_parent
+    return None
+
+
+def _kind(op_name: str) -> str:
+    name = op_name.removeprefix("aten::")
+    if "conv" in name:
+        return "convolutions"
+    if name in ("mm", "addmm", "bmm", "baddbmm", "matmul", "linear") \
+            or name.startswith(("mm_", "addmm_", "bmm_")):
+        return "GEMMs"
+    if name in ("_to_copy", "copy_", "to"):
+        return "casts"
+    if name.startswith(REDUCTIONS) or "reduce" in name:
+        return "reductions"
+    return "elementwise"
+
+
+def device_kernels(events) -> list:
+    """The device activity of a profile's events (kernels, copies,
+    memsets): its CUDA events without the device-side copies of
+    ``record_function`` ranges, which span the kernels launched in them
+    and the gaps between."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(TAG)]
+
+
+def kernel_label(kernel_name: str) -> str:
+    """A device kernel's short name: its ``*_kernel*`` word (the port's
+    kernels are named so), else its first 40 characters."""
+    m = _KERNEL_NAME.search(kernel_name)
+    return m.group(0) if m else kernel_name[:40]
+
+
+def attribute(events, use_cpu: bool = False) -> dict:
+    """{(phase, owner, kind): us} over ``events`` (a profile of CPU ops
+    and device activity): the device time of each kernel (with
+    ``use_cpu``, each aten op's self CPU time) under the operation
+    that launched it. The phase is "backward" under an autograd node, whose
+    owner is that of the forward operation that recorded the node (the
+    profiler's sequence numbers), "update" for Adam and the BN EMA, else
+    "forward"; the owner is the innermost ``owner_ranges`` range; the kind
+    comes from the aten operation (``_kind``), and a kernel that no aten
+    operation launched (the port's, through ctypes) is its own kind,
+    ``"kernel " + kernel_label``."""
+    cpu = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    fwd_owner = {}
+    for e in cpu:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
+            fwd_owner.setdefault(e.sequence_nr, _owner(e))
+    out = collections.Counter()
+    for e in cpu:
+        if use_cpu:
+            if not e.name.startswith("aten::"):
+                continue
+            parts = [(_kind(e.name), e.self_cpu_time_total)]
+        elif e.name.startswith("aten::"):
+            parts = [(_kind(e.name), sum(k.duration for k in e.kernels))]
+        else:
+            parts = [("kernel " + kernel_label(k.name), k.duration)
+                     for k in e.kernels]
+        parts = [(kind, us) for kind, us in parts if us]
+        if not parts:
+            continue
+        phase, owner, node = "forward", None, e
+        while node is not None:
+            if node.name.startswith("autograd::engine::evaluate_function"):
+                phase = "backward"
+                owner = fwd_owner.get(node.sequence_nr)
+                break
+            node = node.cpu_parent
+        if phase == "forward":
+            owner = _owner(e)
+            if owner in ("Adam", "BN EMA"):
+                phase = "update"
+        for kind, us in parts:
+            out[(phase, owner or "other", kind)] += us
+    return out
+
+
+def attribute_rows(rows) -> dict:
+    """{("forward", owner, kind): us} over ``parse_trace``'s device rows
+    of a forward: each row under the innermost ``owner_ranges`` range
+    around its launch (its ``scope``; "other" outside them), its kind from
+    the operation that launched it (``_kind`` of an aten op; a row that no
+    aten op launched, as the port's wrappers launch theirs, under its own
+    name, ``"kernel " + kernel_label``). The trace links each launch to
+    the ranges open on its thread, so every row counts, wherever the
+    profiler's event tree would lose it."""
+    out = collections.Counter()
+    for r in rows:
+        owners = [part[len(TAG):] for part in r["scope"].split("/")
+                  if part.startswith(TAG)]
+        kind = (_kind(r["op"]) if r["op"].startswith("aten::")
+                else "kernel " + kernel_label(r["name"]))
+        out[("forward", owners[-1] if owners else "other", kind)] += \
+            r["dur_us"]
+    return out
+
+
+def print_attribution(table: dict, calls: int, unit: str,
+                      per: str = "step") -> float:
+    """Print ``attribute``'s table per phase and owner, ms a ``per`` over
+    ``calls`` calls by kind, largest first, then the sums by kind; returns
+    the attributed ms a call."""
+    total = sum(table.values()) / 1e3 / calls
+    print(f"[by module] {unit} a {per}: {total:.3f} ms attributed")
+    rows = collections.defaultdict(collections.Counter)
+    for (phase, owner, kind), us in table.items():
+        rows[(phase, owner)][kind] += us
+    for (phase, owner), kinds in sorted(rows.items(),
+                                        key=lambda kv: -sum(kv[1].values())):
+        s = sum(kinds.values())
+        parts = ", ".join(f"{k} {v / 1e3 / calls:.3f}"
+                          for k, v in kinds.most_common())
+        print(f"[by module] {phase:8s} {owner:10s} {s / 1e3 / calls:8.3f} "
+              f"ms ({parts})")
+    kinds = collections.Counter()
+    for (_, _, kind), us in table.items():
+        kinds[kind] += us
+    print("[by module] by kind: " + ", ".join(
+        f"{k} {v / 1e3 / calls:.3f} ms" for k, v in kinds.most_common()))
+    return total

@@ -28,6 +28,9 @@ rank), dropout off, weights bridged from JAX's trees.
   file.
 - The one-process read of a sharded checkpoint rests on two names private
   to torch (``checkpoints._read_sharded``); a test names them.
+- A sharded save cut over an earlier checkpoint of its epoch (one process,
+  a world-1 group, DCP's save made to raise): the epoch no longer counts,
+  and ``latest_epoch`` gives the one before.
 
 The JAX steps run in this process while the ranks run theirs.
 """
@@ -330,3 +333,41 @@ def test_the_one_process_sharded_read_finds_torchs_private_names():
     assert load is not None
     assert {"state_dict", "storage_reader", "planner", "no_dist"} <= set(
         inspect.signature(load).parameters)
+
+
+def test_a_cut_sharded_save_leaves_the_earlier_epoch_whole(tmp_path,
+                                                            monkeypatch):
+    """One process, a world-1 gloo group: sharded checkpoints of epochs 5
+    and 10, then epoch 10 written again with DCP's save failing before its
+    first shard. Epoch 10 no longer counts as a checkpoint (its ``meta.pt``
+    went before the save), so ``latest_epoch`` falls back to 5, which still
+    restores."""
+    import torch.distributed.checkpoint as dcp
+
+    multihost.initialize("cpu", store=torch.distributed.HashStore(), rank=0,
+                         world_size=1)
+    ckpt = str(tmp_path / "ckpt")
+    try:
+        torch.manual_seed(0)
+        model = mesh.shard_state_fsdp(
+            mesh.make_mesh_2d(1, 1, "cpu"),
+            torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Linear(16, 4)))
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        model(torch.ones(2, 8)).sum().backward()
+        opt.step()
+        checkpoints.save_checkpoint(ckpt, 5, model, opt, 5)
+        checkpoints.save_checkpoint(ckpt, 10, model, opt, 10)
+        assert checkpoints.is_sharded_checkpoint(ckpt, 10)
+        assert checkpoints.latest_epoch(ckpt) == 10
+
+        def cut(*args, **kwargs):
+            raise OSError("the save was cut")
+        monkeypatch.setattr(dcp, "save", cut)
+        with pytest.raises(OSError, match="the save was cut"):
+            checkpoints.save_checkpoint(ckpt, 10, model, opt, 10)
+    finally:
+        multihost.shutdown()
+    assert not torch.distributed.is_initialized()
+    assert not checkpoints.has_checkpoint(ckpt, 10)
+    assert checkpoints.latest_epoch(ckpt) == 5
+    assert checkpoints.restore_for_eval(ckpt, 5)["step"] == 5

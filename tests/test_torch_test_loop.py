@@ -405,7 +405,7 @@ def _imports(path: Path):
 def _port_files():
     files = sorted((REPO / "istnet_tpu_torch").rglob("*.py"))
     files += sorted((REPO / "tools").glob("*torch*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
 
 
 def test_port_sources_import_nothing_of_jax():

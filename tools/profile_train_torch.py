@@ -30,7 +30,9 @@ comes from the aten operation: convolutions (cuDNN), GEMMs (cuBLAS),
 casts (``aten::_to_copy`` / ``copy_``), reductions (sums, means,
 variances, norms, maxima), else elementwise; a kernel that no aten
 operation launched is one of the port's (its wrappers and autograd
-Functions launch through ctypes). Kernels the profiler links to no CPU
+Functions launch through ctypes) and counts under its own name. The
+attribution lives in ``istnet_tpu_torch/utils/profiling.py``, shared with
+``tools/profile_fwd_torch.py``. Kernels the profiler links to no CPU
 event stay out: the attributed total is printed beside the busy time.
 
 ``--device cpu`` runs the same attribution on the CPU (B=2, 48x48, SA
@@ -42,8 +44,6 @@ Imports no JAX.
 from __future__ import annotations
 
 import argparse
-import collections
-import contextlib
 import sys
 import time
 from pathlib import Path
@@ -52,151 +52,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 BATCH, STEPS, TOP = 24, 3, 40
 OWNERS = ("BatchNorm", "Dropout2d", "PReLU")
-TAG = "owner:"
-REDUCTIONS = ("sum", "mean", "var", "norm", "max", "amax", "min", "std")
 
 
-def busy_and_span(intervals) -> tuple[float, float]:
-    """Union length and extent of ``(start, end)`` intervals."""
-    intervals = sorted(intervals)
-    busy, (lo, hi) = 0.0, intervals[0]
-    first = lo
-    last = max(end for _, end in intervals)
-    for start, end in intervals[1:]:
-        if start > hi:
-            busy += hi - lo
-            lo, hi = start, end
-        else:
-            hi = max(hi, end)
-    return busy + hi - lo, last - first
-
-
-@contextlib.contextmanager
-def owner_ranges(model, train_state):
-    """``record_function`` ranges naming the owners: the forward of every
-    BatchNorm, Dropout2d and PReLU, the loss, Adam (the profiler names its
-    step) and the BN EMA."""
-    import torch
-    from torch.profiler import record_function
-
-    open_ranges = {}
-    hooks = []
-
-    def enter(module, _):
-        rf = record_function(TAG + type(module).__name__)
-        rf.__enter__()
-        open_ranges.setdefault(id(module), []).append(rf)
-
-    def leave(module, _, __):
-        open_ranges[id(module)].pop().__exit__(None, None, None)
-
-    for m in model.modules():
-        if type(m).__name__ in OWNERS:
-            hooks.append(m.register_forward_pre_hook(enter))
-            hooks.append(m.register_forward_hook(leave))
-
-    def wrap(fn, name):
-        def wrapped(*a, **k):
-            with record_function(TAG + name):
-                return fn(*a, **k)
-        return wrapped
-    saved = {k: getattr(train_state, k)
-             for k in ("supervised_loss", "update_bn_stats")}
-    train_state.supervised_loss = wrap(saved["supervised_loss"], "loss")
-    train_state.update_bn_stats = torch.no_grad()(
-        wrap(saved["update_bn_stats"], "BN EMA"))
-    try:
-        yield
-    finally:
-        for h in hooks:
-            h.remove()
-        for k, v in saved.items():
-            setattr(train_state, k, v)
-
-
-def _owner(evt) -> str | None:
-    while evt is not None:
-        if evt.name.startswith(TAG):
-            return evt.name[len(TAG):]
-        if evt.name.startswith("Optimizer.step#"):
-            return "Adam"
-        evt = evt.cpu_parent
-    return None
-
-
-def _kind(op_name: str) -> str:
-    name = op_name.removeprefix("aten::")
-    if "conv" in name:
-        return "convolutions"
-    if name in ("mm", "addmm", "bmm", "baddbmm", "matmul", "linear") \
-            or name.startswith(("mm_", "addmm_", "bmm_")):
-        return "GEMMs"
-    if name in ("_to_copy", "copy_", "to"):
-        return "casts"
-    if name.startswith(REDUCTIONS) or "reduce" in name:
-        return "reductions"
-    return "elementwise"
-
-
-def attribute(events, use_cpu: bool = False) -> dict:
-    """{(phase, owner, kind): us} over ``events`` (a profile of CPU ops
-    and device activity): the device time of each kernel (with
-    ``use_cpu``, each CPU op's self time) under the operation that
-    launched it."""
-    import torch
-    cpu = [e for e in events
-           if e.device_type == torch.autograd.DeviceType.CPU]
-    fwd_owner = {}
-    for e in cpu:
-        if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
-            fwd_owner.setdefault(e.sequence_nr, _owner(e))
-    out = collections.Counter()
-    for e in cpu:
-        if use_cpu:
-            if not e.name.startswith("aten::") or e.cpu_children:
-                continue
-            us = e.self_cpu_time_total
-        else:
-            us = sum(k.duration for k in e.kernels)
-        if not us:
-            continue
-        kind = _kind(e.name) if e.name.startswith("aten::") else \
-            "port kernels"
-        phase, owner, node = "forward", None, e
-        while node is not None:
-            if node.name.startswith("autograd::engine::evaluate_function"):
-                phase = "backward"
-                owner = fwd_owner.get(node.sequence_nr)
-                break
-            node = node.cpu_parent
-        if phase == "forward":
-            owner = _owner(e)
-            if owner in ("Adam", "BN EMA"):
-                phase = "update"
-        out[(phase, owner or "other", kind)] += us
-    return out
-
-
-def print_attribution(table: dict, steps: int, unit: str) -> None:
-    """Per phase, per owner: ms a step by kind, largest first."""
-    total = sum(table.values())
-    print(f"[by module] {unit} a step: {total / 1e3 / steps:.3f} ms "
-          f"attributed")
-    rows = collections.defaultdict(collections.Counter)
-    for (phase, owner, kind), us in table.items():
-        rows[(phase, owner)][kind] += us
-    for (phase, owner), kinds in sorted(rows.items(),
-                                        key=lambda kv: -sum(kv[1].values())):
-        s = sum(kinds.values())
-        parts = ", ".join(f"{k} {v / 1e3 / steps:.3f}"
-                          for k, v in kinds.most_common())
-        print(f"[by module] {phase:8s} {owner:10s} {s / 1e3 / steps:8.3f} "
-              f"ms ({parts})")
-    kinds = collections.Counter()
-    for (_, _, kind), us in table.items():
-        kinds[kind] += us
-    print("[by module] by kind: " + ", ".join(
-        f"{k} {v / 1e3 / steps:.3f} ms" for k, v in kinds.most_common()))
+def train_owners(model, train_state) -> tuple[dict, tuple]:
+    """``profiling.owner_ranges``' arguments for the train step: every
+    BatchNorm, Dropout2d and PReLU by its type's name, the loss and the BN
+    EMA (Adam is named by the profiler's own range of its step)."""
+    modules = {m: type(m).__name__ for m in model.modules()
+               if type(m).__name__ in OWNERS}
+    return modules, ((train_state, "supervised_loss", "loss"),
+                     (train_state, "update_bn_stats", "BN EMA"))
 
 
 def main(argv=None) -> int:
@@ -218,6 +83,13 @@ def main(argv=None) -> int:
         TrainConfig,
         make_optimizer,
         train_step,
+    )
+    from istnet_tpu_torch.utils.profiling import (
+        attribute,
+        busy_and_span,
+        device_kernels,
+        owner_ranges,
+        print_attribution,
     )
     on_cpu = args.device == "cpu"
     if not on_cpu and not torch.cuda.is_available():
@@ -247,7 +119,7 @@ def main(argv=None) -> int:
         ("device only", [ProfilerActivity.CUDA]),
         ("CPU ops + device", [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
     for label, activities in runs:
-        with owner_ranges(model, train_state), \
+        with owner_ranges(*train_owners(model, train_state)), \
                 profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
@@ -260,8 +132,7 @@ def main(argv=None) -> int:
             print_attribution(attribute(prof.events(), use_cpu=True), n,
                               "CPU self time (rehearsal)")
             continue
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_kernels(prof.events())
         if not kernels:
             print(f"[{label}] the profiler saw no device activity")
             continue
