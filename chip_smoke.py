@@ -8,7 +8,8 @@ Phases, each printing its own lines; any failure exits nonzero:
 
 1. device: the card's name and power limit (nvidia-smi), torch / CUDA /
    nvcc versions;
-2. build: compile the CUDA kernels from ``istnet_tpu_torch/csrc``;
+2. build: compile the CUDA kernels from ``istnet_tpu_torch/csrc`` and the
+   host depth fill from ``istnet_tpu_torch/native``;
 
 then for each compute policy, float32 and bf16 (the deployment precision):
 
@@ -238,6 +239,20 @@ then the bench (``bench_torch.py`` and ``tools/{train,eval}_bench_torch.py``):
    the B = 32 forward of those rows; the three eval loops of
    ``tools/eval_bench_torch.py`` over 64 images, every pose finite.
 
+then the last modules of the JAX package (their seconds printed together):
+
+37. native fill: the host C++ depth fill (``istnet_tpu_torch/native``,
+   built with ``g++`` by phase 2) on the serving frame and a half-empty
+   480 x 640 frame against the OpenCV chain and kernel 11 within 0.01 mm,
+   the default ``fill_missing`` bit-equal to the native call; host ms a
+   frame of both fills beside the CPU's model;
+38. converter: ``cli/convert_torch_istnet.py`` at full width, ``.pth`` ->
+   ``.npz`` -> ``.pth`` for ``ISTNet``, ``PoseNetGT`` and a frozen
+   checkpoint without the world pose head: the export equal to the
+   original bit for bit, the B = 32 eval forward from the ``.npz`` and
+   from the export bit-equal to the original weights' forward, kernels
+   1-4 launched as counted.
+
 Before the last line come the card's name and power limit (first line) and a
 JSON object of per-kernel results with each kernel's bound; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -435,6 +450,13 @@ def phase_build() -> None:
     for line in info.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  " + line.strip())
+    # the host depth fill's C++ core, which the host data paths run
+    from istnet_tpu_torch import native
+    t0 = time.perf_counter()
+    native.library()
+    print(f"[build] {native.LIB_NAME} (host depth fill) in "
+          f"{time.perf_counter() - t0:.1f} s by "
+          f"{native.build_info['compiler']}")
 
 
 def _points(rng, b, n):
@@ -1808,18 +1830,19 @@ def phase_depth_fill(device) -> dict:
     if zero.abs().max().item() != 0.0:
         raise AssertionError("depth_fill: an all-zero frame did not stay zero")
     frame_mm = make_frame(3, SERVE_INSTANCES, hole_share=0.3)["depth_raw"]
-    want_mm = depth_utils.fill_missing(frame_mm, 1000.0, 1.0)
+    want_mm = depth_utils.fill_missing(frame_mm, 1000.0, 1.0,
+                                       prefer_native=False)
     got_mm = fill_missing(torch.from_numpy(frame_mm)[None].to(device))[0]
     err_mm = float(np.abs(got_mm.cpu().numpy() - want_mm).max())
     if err_mm > DEPTH_FILL_CV2_TOL_MM:
         raise AssertionError(f"depth_fill vs the OpenCV pipeline: {err_mm} mm")
     print(f"[depth-fill] all-zero frame stays zero; a {h}x{w} frame against "
           f"the OpenCV pipeline: max abs err {err_mm:.3g} mm")
-    # the host fill that the host data path runs (and JAX's fallback for
-    # its native/ core) beside kernel 11 on the same frame
+    # the OpenCV host fill (the host data path's fill before the native
+    # core of phase 37) beside kernel 11 on the same frame
     frame_m = torch.from_numpy(frame_mm)[None].to(device)
-    host_ms = timed(lambda: depth_utils.fill_missing(frame_mm, 1000.0, 1.0),
-                    iters=5, warmup=1) * 1e3
+    host_ms = timed(lambda: depth_utils.fill_missing(
+        frame_mm, 1000.0, 1.0, prefer_native=False), iters=5, warmup=1) * 1e3
     card_ms = cuda_ms(lambda: fill_missing(frame_m), iters=20)
     print(f"[depth-fill] the OpenCV host fill of one {h}x{w} frame: "
           f"{host_ms:.3f} ms on this host's CPU (os.cpu_count() "
@@ -3989,6 +4012,211 @@ def phase_bench(device, models: dict) -> tuple:
     return counts, errs, times
 
 
+# the native host depth fill (phase 37): tests/test_native_core.py's bound
+# on the core against OpenCV, here also against kernel 11; host ms a frame
+# as the median of HOST_FILL_ROUNDS calls after one warmup
+HOST_FILL_TOL_MM = 0.01
+HOST_FILL_ROUNDS = 10
+HALF_HOLES = 0.5
+
+
+def _cpu_model() -> str:
+    """``lscpu``'s model name, or its vendor, family and model numbers
+    where it names no model."""
+    fields = {}
+    for line in run(["lscpu"]).splitlines():
+        key, _, value = line.partition(":")
+        fields.setdefault(key.strip(), value.strip())
+    name = fields.get("Model name", "unknown")
+    if name != "unknown":
+        return name
+    return (f"{fields.get('Vendor ID', '?')} family "
+            f"{fields.get('CPU family', '?')} model {fields.get('Model', '?')}"
+            f" (lscpu names no model)")
+
+
+def _median_ms(fn, rounds: int = HOST_FILL_ROUNDS) -> float:
+    fn()
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[rounds // 2]
+
+
+def phase_native_fill(device) -> None:
+    """Phase 37: the port's native host fill (``istnet_tpu_torch/native``,
+    built by ``phase_build``) on the serving frame and on a 480 x 640 frame
+    with HALF_HOLES of its pixels empty: against the OpenCV chain
+    (``fill_missing(prefer_native=False)``) and kernel 11 within
+    HOST_FILL_TOL_MM, the default ``fill_missing`` bit-equal to the native
+    call; host ms a frame of the native and the OpenCV fill beside the
+    CPU's model and the card's name and power limit."""
+    import numpy as np
+    import torch
+
+    from istnet_tpu_torch import native
+    from istnet_tpu_torch.data import depth_utils
+    from istnet_tpu_torch.data.device_preprocess import fill_missing
+    from istnet_tpu_torch.entry import make_frame
+    info = native.build_info
+    print(f"[native fill] {native.LIB_NAME} built in "
+          f"{info.get('seconds', 0.0):.2f} s (cached {info.get('cached')}) by "
+          f"{info.get('compiler')}, flags {' '.join(native.CXXFLAGS)}")
+    card = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).splitlines()[0]
+    cpu = _cpu_model()
+    frames = {"the serving frame": _serve_frame(device)[1],
+              "a half-empty frame": make_frame(
+                  37, SERVE_INSTANCES, hole_share=HALF_HOLES)["depth_raw"]}
+    for label, mm in frames.items():
+        empty = float((mm <= 0).mean())
+        nat = native.fill_missing_native(mm, 1000.0, 1.0)
+        default = depth_utils.fill_missing(mm, 1000.0, 1.0)
+        opencv = depth_utils.fill_missing(mm, 1000.0, 1.0,
+                                          prefer_native=False)
+        kern = fill_missing(torch.from_numpy(mm)[None].to(device))[0]
+        kern = kern.cpu().numpy()
+        err_cv = float(np.abs(nat - opencv).max())
+        err_k = float(np.abs(nat - kern).max())
+        if not np.array_equal(default, nat):
+            raise AssertionError(f"native fill, {label}: the default "
+                                 f"fill_missing is not the native call")
+        if not (err_cv <= HOST_FILL_TOL_MM and err_k <= HOST_FILL_TOL_MM):
+            raise AssertionError(
+                f"native fill, {label}: {err_cv} mm off OpenCV, {err_k} mm "
+                f"off kernel 11 (bound {HOST_FILL_TOL_MM})")
+        nat_ms = _median_ms(lambda: native.fill_missing_native(mm, 1000.0,
+                                                               1.0))
+        cv_ms = _median_ms(lambda: depth_utils.fill_missing(
+            mm, 1000.0, 1.0, prefer_native=False))
+        print(f"[native fill] {label} ({mm.shape[0]}x{mm.shape[1]}, "
+              f"{empty:.1%} empty): the default fill_missing bit-equal to "
+              f"the native call; native against OpenCV max abs err "
+              f"{err_cv:.3g} mm, against kernel 11 {err_k:.3g} mm (bound "
+              f"{HOST_FILL_TOL_MM:g}); host ms a frame, median of "
+              f"{HOST_FILL_ROUNDS} after 1 warmup: native {nat_ms:.3f}, "
+              f"OpenCV {cv_ms:.3f} ({cv_ms / nat_ms:.2f}x); CPU {cpu} "
+              f"(os.cpu_count() {os.cpu_count()}); card {card}")
+
+
+# the checkpoint converter (phase 38): .pth -> .npz -> .pth at full width
+CONVERT_CASES = ("ist_net", "posenet_gt", "frozen")
+
+
+def _convert_model(case: str, device, seed: int):
+    """A full-width eval model of ``case`` on ``device``, random weights
+    and perturbed BN statistics from ``seed``."""
+    import torch
+
+    from istnet_tpu_torch.entry import (build_model, init_weights_,
+                                        perturb_eval_stats_)
+    from istnet_tpu_torch.models.posenet_gt import PoseNetGT
+    if case != "posenet_gt":
+        return build_model(device, seed=seed,
+                           freeze_world_enhancer=case == "frozen")
+    model = PoseNetGT()
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    perturb_eval_stats_(model, seed)
+    return model.eval().to(device)
+
+
+def phase_convert(device) -> dict:
+    """Phase 38: ``cli/convert_torch_istnet.py`` both ways at full width.
+    Per case (``ISTNet``, ``PoseNetGT``, a frozen ``ISTNet`` checkpoint
+    without ``world_enhancer.pose_estimator``): the state dict (its dead
+    ``feats.fc`` zeroed, as the ``.npz`` carries none) saved as ``.pth``,
+    ``--torch_ckpt`` to ``.npz``, ``--export_npz`` back to ``.pth``: the
+    export equal to the original key for key and bit for bit; the B=32 eval
+    forward on the card from the ``.npz`` (``convert.load_weights``) and
+    from the exported ``.pth`` bit-equal to the original weights' forward.
+    Returns the launches of the ISTNet forward from the ``.npz``."""
+    import tempfile
+
+    import torch
+
+    from istnet_tpu_torch import convert, ops
+    from istnet_tpu_torch.cli import convert_torch_istnet
+    from istnet_tpu_torch.entry import make_inputs, make_train_batch
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, case in enumerate(CONVERT_CASES):
+            kind = "posenet_gt" if case == "posenet_gt" else "ist_net"
+            src = _convert_model(case, device, seed=i)
+            with torch.no_grad():
+                for k, v in src.state_dict().items():
+                    if ".feats.fc." in k:
+                        v.zero_()
+            sd = {k: v.detach().cpu().clone()
+                  for k, v in src.state_dict().items()
+                  if not (case == "frozen"
+                          and k.startswith("world_enhancer.pose_estimator."))}
+            pth = os.path.join(tmp, f"{case}.pth")
+            torch.save(sd, pth)
+            t0 = time.perf_counter()
+            npz = convert_torch_istnet.main(["--torch_ckpt", pth,
+                                             "--model", kind])
+            t1 = time.perf_counter()
+            back = convert_torch_istnet.main(["--export_npz", npz,
+                                              "--model", kind])
+            t2 = time.perf_counter()
+            exported = torch.load(back, weights_only=True)
+            off = sorted(set(sd) ^ set(exported)) + [
+                k for k in sd if k in exported
+                and not (exported[k].dtype == sd[k].dtype
+                         and torch.equal(exported[k], sd[k]))]
+            if off:
+                raise AssertionError(f"convert {case}: {len(off)} keys of the "
+                                     f"export off the original: {off[:5]}")
+            if case == "posenet_gt":
+                inputs = make_train_batch(BATCH, seed=38,
+                                          device=device)["inputs"]
+            else:
+                inputs = make_inputs(BATCH, seed=38, device=device)
+            outs = {}
+            for label, state in (("npz", convert.load_weights(npz, kind)),
+                                 ("pth", exported)):
+                model = _convert_model(case, device, seed=10 + i)
+                if case == "frozen":
+                    own = model.state_dict()
+                    state = {**{k: v for k, v in own.items()
+                                if k.startswith(
+                                    "world_enhancer.pose_estimator.")},
+                             **state}
+                model.load_state_dict(state, strict=True)
+                with torch.inference_mode():
+                    torch.cuda.synchronize()
+                    ops.reset_launch_counts()
+                    outs[label] = model(inputs)
+                    torch.cuda.synchronize()
+                    if case == "ist_net" and label == "npz":
+                        counts = ops.launch_counts()
+            with torch.inference_mode():
+                want = src(inputs)
+            differ = [f"{label}:{k}" for label, out in outs.items()
+                      for k in want if not torch.equal(out[k], want[k])]
+            for out in outs.values():
+                for k, v in out.items():
+                    if not torch.isfinite(v).all():
+                        raise AssertionError(f"convert {case}: {k} not finite")
+            print(f"[convert] {case}: {len(sd)} tensors -> "
+                  f"{os.path.getsize(npz) / 2 ** 20:.1f} MiB .npz in "
+                  f"{t1 - t0:.2f} s -> .pth in {t2 - t1:.2f} s, the export "
+                  f"equal to the original key for key and bit for bit; the "
+                  f"B={BATCH} eval forward from the .npz and from the export: "
+                  f"{len(differ)} of {2 * len(want)} outputs off the "
+                  f"original weights' forward in any bit")
+            if differ:
+                raise AssertionError(f"convert {case}: {differ[:4]}")
+    if {k: v for k, v in counts.items() if v} != {
+            k: v for k, v in F32_PER_FORWARD.items() if v}:
+        raise AssertionError(f"convert: launches {counts}, expected "
+                             f"{F32_PER_FORWARD}")
+    print(f"[convert] the ist_net forward from the .npz: launches {counts}")
+    return counts
+
+
 def main() -> int:
     device_info = phase_device()
     import torch
@@ -4217,6 +4445,15 @@ def main() -> int:
     record("bench train", "float32", errs_d, bench_counts, times_d,
            ["depth_fill", "ball_query", "group_scatter", "three_nn",
             "interp_scatter"])
+
+    # phases 37-38: the native host depth fill, the checkpoint converter
+    seconds = {}
+    clocked("37 native fill", phase_native_fill, device)
+    convert_counts = clocked("38 converter", phase_convert, device)
+    print("[phases 37-38] " + ", ".join(f"{k} {v:.1f} s"
+                                         for k, v in seconds.items()))
+    record("converted weights", "float32", errs, convert_counts, times,
+           list(cases))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device_info}))

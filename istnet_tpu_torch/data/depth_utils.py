@@ -8,12 +8,17 @@ The port's own copy of ``istnet_tpu/data/depth_utils.py``:
   ``camera_full_depths/.../<stem>_composed.png``.
 - ``get_bbox``: square crop snapped to 40-px multiples, max 440, clamped to
   the 480x640 frame.
-- ``fill_in_multiscale`` / ``fill_missing``: the ip_basic-style multi-scale
-  morphological depth completion with OpenCV calls: invert depths, dilate
-  three distance bands with cross kernels, close, median-blur, hole-fill,
-  6x masked dilation, median + bilateral blur, invert back. It is the golden
-  reference of the device fill (``ops/depth_fill.py``) and the host path of
-  ``TrainingDataset`` and ``TestDataset``.
+- ``fill_in_multiscale``: the ip_basic-style multi-scale morphological
+  depth completion with OpenCV calls: invert depths, dilate three distance
+  bands with cross kernels, close, median-blur, hole-fill, 6x masked
+  dilation, median + bilateral blur, invert back. It is the golden
+  reference of the device fill (``ops/depth_fill.py``).
+- ``fill_in_fast``: the single-scale fast completion, OpenCV calls.
+- ``fill_missing``: the host fill of ``TrainingDataset`` and
+  ``TestDataset``. Its default (multiscale, bilateral) runs the C++ core of
+  ``istnet_tpu_torch/native``, as the JAX package's does; other
+  configurations, frames under 5 x 5, ``prefer_native=False`` and
+  ``ISTNET_NATIVE_DEPTH_FILL=0`` run the OpenCV chain.
 - ``backproject``: depth map -> camera-space point map.
 """
 
@@ -23,6 +28,8 @@ import os
 
 import cv2
 import numpy as np
+
+from istnet_tpu_torch import native
 
 FULL_KERNEL_5 = np.ones((5, 5), np.uint8)
 FULL_KERNEL_9 = np.ones((9, 9), np.uint8)
@@ -160,13 +167,70 @@ def fill_in_multiscale(depth_map: np.ndarray, max_depth: float = 3.0,
     return out
 
 
-def fill_missing(dpt: np.ndarray, cam_scale: float, scale_2_80m: float,
+def fill_in_fast(depth_map: np.ndarray, max_depth: float = 100.0,
+                 extrapolate: bool = False,
                  blur_type: str = "bilateral") -> np.ndarray:
-    """Depth (sensor units) -> completed depth, same units: the multiscale
-    fill at ``max_depth=3`` metres through the OpenCV calls."""
+    """Single-scale fast completion (``data_utils.py:134-198``)."""
+    diamond5 = np.array([[0, 0, 1, 0, 0], [0, 1, 1, 1, 0], [1, 1, 1, 1, 1],
+                         [0, 1, 1, 1, 0], [0, 0, 1, 0, 0]], np.uint8)
+    full7 = np.ones((7, 7), np.uint8)
+    d = depth_map.astype(np.float32).copy()
+    valid = d > 0.1
+    d[valid] = max_depth - d[valid]
+    d = cv2.dilate(d, diamond5)
+    d = cv2.morphologyEx(d, cv2.MORPH_CLOSE, FULL_KERNEL_5)
+    empty = d < 0.1
+    dil = cv2.dilate(d, full7)
+    d[empty] = dil[empty]
+    if extrapolate:
+        top = np.argmax(d > 0.1, axis=0)
+        vals = d[top, range(d.shape[1])]
+        for c in range(d.shape[1]):
+            d[:top[c], c] = vals[c]
+        empty = d < 0.1
+        dil = cv2.dilate(d, np.ones((31, 31), np.uint8))
+        d[empty] = dil[empty]
+    d = cv2.medianBlur(d, 5)
+    if blur_type == "bilateral":
+        d = cv2.bilateralFilter(d, 5, 1.5, 2.0)
+    else:
+        valid = d > 0.1
+        blurred = cv2.GaussianBlur(d, (5, 5), 0)
+        d[valid] = blurred[valid]
+    valid = d > 0.1
+    d[valid] = max_depth - d[valid]
+    return d
+
+
+# ISTNET_NATIVE_DEPTH_FILL=0 asks for the OpenCV chain by default
+_NATIVE_OK = os.environ.get("ISTNET_NATIVE_DEPTH_FILL", "1") != "0"
+
+
+def fill_missing(dpt: np.ndarray, cam_scale: float, scale_2_80m: float,
+                 blur_type: str = "bilateral", fill_type: str = "multiscale",
+                 prefer_native: bool | None = None) -> np.ndarray:
+    """Depth (sensor units) -> completed depth, same units
+    (``data_utils.py:514-534``): the multiscale fill at ``max_depth=3``
+    metres, or the fast one at 100 with ``fill_type="fast"``.
+
+    The default configuration runs the C++ core
+    (``native.fill_missing_native``; within 0.01 mm of the OpenCV chain);
+    it raises where the core cannot be built. ``prefer_native=False``, or
+    ``ISTNET_NATIVE_DEPTH_FILL=0`` when ``prefer_native`` is None, runs the
+    OpenCV chain; so do other configurations and frames under 5 x 5, where
+    the core's borders part from OpenCV's."""
+    if prefer_native is None:
+        prefer_native = _NATIVE_OK
+    if (prefer_native and fill_type == "multiscale"
+            and blur_type == "bilateral" and min(dpt.shape[:2]) >= 5):
+        return native.fill_missing_native(dpt, cam_scale, scale_2_80m)
     dpt = dpt / cam_scale * scale_2_80m
-    out = fill_in_multiscale(dpt.astype(np.float32), max_depth=3.0,
-                             blur_type=blur_type)
+    if fill_type == "fast":
+        out = fill_in_fast(dpt.astype(np.float32), extrapolate=False,
+                           blur_type=blur_type)
+    else:
+        out = fill_in_multiscale(dpt.astype(np.float32), max_depth=3.0,
+                                 blur_type=blur_type)
     return out / scale_2_80m * cam_scale
 
 

@@ -16,6 +16,18 @@ def smooth_l1_dis(p1: torch.Tensor, p2: torch.Tensor,
     return torch.where(diff > threshold, higher, less).sum(dim=-1).mean()
 
 
+def chamfer_dis(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Symmetric Chamfer distance of (B, N, 3) and (B, M, 3) point sets
+    (``losses.py:25-34``): each point's distance to its nearest neighbour
+    in the other set, averaged a set and a sample, the two halves weighted
+    0.5. Part of the reference's loss module; IST-Net does not use it."""
+    dis = torch.linalg.vector_norm(p1[:, :, None, :] - p2[:, None, :, :],
+                                   dim=-1)
+    dis1 = dis.amin(dim=2)
+    dis2 = dis.amin(dim=1)
+    return torch.mean(0.5 * dis1.mean(dim=1) + 0.5 * dis2.mean(dim=1))
+
+
 def norm_zero_subgrad(d: torch.Tensor, dim: int) -> torch.Tensor:
     """L2 norm over ``dim`` whose gradient at an exactly zero vector is 0,
     not NaN (``losses.py:_norm_zero_subgrad``): the double ``where`` keeps

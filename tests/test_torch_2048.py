@@ -7,8 +7,8 @@
   parity tests' ``BRANCH_F32_TOL`` / ``BRANCH_F64_TOL`` of each output's
   largest value (``tests/test_torch_train_model.py``).
 - ``TrainingDataset`` samples and ``DataLoader`` batches at ``sample_num:
-  2048``, bit-equal to JAX's (its OpenCV fill, as
-  ``tests/test_torch_train_data.py`` runs it).
+  2048``, bit-equal to JAX's (both on their OpenCV fill, as
+  ``tests/test_torch_train_data.py`` runs them).
 - The train sampler (``make_train_preprocess``) and the test side
   (``preprocess_shared_image``) at 2048 against JAX's on JAX's draws,
   within the tolerances of ``tests/test_torch_device_train.py`` and
@@ -36,6 +36,7 @@ from istnet_tpu.data import device_preprocess as jdp
 from istnet_tpu.data import loader as jax_loader
 from istnet_tpu.utils.config import Config as JaxConfig
 from istnet_tpu_torch.data import dataset, loader
+from istnet_tpu_torch.data import depth_utils as port_depth_utils
 from istnet_tpu_torch.data import device_preprocess as dp
 from istnet_tpu_torch.data.dataset import REAL_INTRINSICS
 from istnet_tpu_torch.models.ist_net import supervised_loss
@@ -120,6 +121,7 @@ def test_training_samples_at_2048_points_equal_the_jax_packages(
     """Samples of both datasets and the batches of their loaders over one
     epoch, at ``sample_num: 2048``, bit for bit."""
     monkeypatch.setattr(jax_depth_utils, "_NATIVE_OK", False)
+    monkeypatch.setattr(port_depth_utils, "_NATIVE_OK", False)
     port, ref = trees
     kw = dict(data_type=data_type, num_img_per_epoch=4, seed=6)
     got_ds = dataset.TrainingDataset(_cfg(Config), port, **kw)

@@ -37,6 +37,7 @@ from istnet_tpu.data import depth_utils as jax_depth_utils
 from istnet_tpu.data import loader as jax_loader
 from istnet_tpu.data import synthetic as jax_synthetic
 from istnet_tpu.utils.config import Config as JaxConfig
+from istnet_tpu_torch.data import depth_utils as port_depth_utils
 from istnet_tpu_torch.models.ist_net import ISTNet
 from istnet_tpu_torch.train import checkpoints
 from istnet_tpu_torch.utils import Config
@@ -61,12 +62,12 @@ def test_each_ranks_loaders_equal_the_jax_clis_per_host_loaders(
         tmp_path, monkeypatch):
     """Rank r of 2: 1 + 1 rows of the config's 2 + 2, its datasets seeded
     ``rd_seed + r * 7919`` and ``+ 1``, as ``istnet_tpu/cli/train.py:175-196``
-    builds them, over two epochs (the JAX side on its OpenCV fill, the path
-    the port copies)."""
+    builds them, over two epochs (both sides on their OpenCV fill)."""
     from istnet_tpu_torch.cli.train import build_loaders
     from istnet_tpu_torch.data import synthetic
 
     monkeypatch.setattr(jax_depth_utils, "_NATIVE_OK", False)
+    monkeypatch.setattr(port_depth_utils, "_NATIVE_OK", False)
     port, ref = str(tmp_path / "port" / "data"), str(tmp_path / "jax" / "data")
     synthetic.build_train_trees(port, n_scenes=3)
     jax_synthetic.build_train_trees(ref, n_scenes=3)

@@ -27,6 +27,7 @@ import torch
 from istnet_tpu.cli import convert_torch_istnet as C
 from istnet_tpu.data import depth_utils as jax_depth_utils
 from istnet_tpu_torch.convert import state_dict_from_jax
+from istnet_tpu_torch.data import depth_utils as port_depth_utils
 from istnet_tpu_torch.data import synthetic
 from istnet_tpu_torch.data.dataset import TrainingDataset
 from istnet_tpu_torch.data.loader import DataLoader
@@ -229,6 +230,7 @@ def test_solver_losses_match_jax_train_step(root, tmp_path, monkeypatch):
 
     monkeypatch.setattr(jl.Dropout2d, "__call__", lambda self, x, train: x)
     monkeypatch.setattr(jax_depth_utils, "_NATIVE_OK", False)
+    monkeypatch.setattr(port_depth_utils, "_NATIVE_OK", False)
     cfg = Config.fromfile(_write_cfg(tmp_path / "c.yaml", 1, 3))
     data_dir = str(root / "data")
     src = build_model(sa_npoints=TINY, seed=51, device="cpu")

@@ -15,7 +15,8 @@
 - The inversion both scatters run on the card, in its plain version
   (``invert_index``), against ``numpy.argsort(kind="stable")`` on the
   path's index maps.
-- BatchNorm in train mode, Dropout2d, the losses and the schedules.
+- BatchNorm in train mode, Dropout2d, the losses (``chamfer_dis`` too, in
+  float64 to 1e-12 and float32 to 1e-6) and the schedules.
 
 Inputs are made from numpy seeds and handed to both frameworks.
 """
@@ -459,6 +460,25 @@ def test_losses_match_jax():
             (losses.pose_dis(*map(_t, pose)),
              jlosses.pose_dis(*map(jnp.asarray, pose)))):
         np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float64", 1e-12),
+                                        ("float32", 1e-6)])
+def test_chamfer_dis_matches_jax(dtype, rtol):
+    """The symmetric Chamfer distance of two sets of unequal sizes."""
+    from istnet_tpu.models import losses as jlosses
+
+    rng = np.random.RandomState(17)
+    p1 = (rng.randn(3, 40, 3) * 0.2).astype(dtype)
+    p2 = (rng.randn(3, 25, 3) * 0.2 + 0.05).astype(dtype)
+    got = losses.chamfer_dis(_t(p1), _t(p2))
+    assert got.dtype == getattr(torch, dtype)
+    jax.config.update("jax_enable_x64", dtype == "float64")
+    try:
+        want = float(jlosses.chamfer_dis(jnp.asarray(p1), jnp.asarray(p2)))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    np.testing.assert_allclose(float(got), want, rtol=rtol, atol=0)
 
 
 def test_pose_dis_gradient_at_a_zero_difference_is_zero():
