@@ -39,6 +39,7 @@ import torch
 from istnet_tpu_torch.data.device_preprocess import (
     fill_missing, preprocess_shared_image)
 from istnet_tpu_torch.parallel.mesh import eval_forward_dp
+from istnet_tpu_torch.utils import tracing
 
 _POSE_KEYS = ("pred_rotation", "pred_translation", "pred_size")
 _GT_KEYS = ("gt_class_ids", "gt_bboxes", "gt_RTs", "gt_scales",
@@ -204,6 +205,11 @@ def make_device_forward(model, intrinsics, img_size: int = 192,
     n_valid (K,)). The sampler's uniforms come from ``generator`` (a
     ``torch.Generator`` on the model's device, ``fn.device``) or are
     ``v (K, sample_num)``.
+
+    Under a profiler a call is the span ``serve`` (its item the call's
+    number) around ``h2d``, ``fill``, ``preprocess`` and the model's
+    ``forward``; the counters ``serve.frames`` and ``h2d.bytes`` (the
+    frame's bytes in host memory) are always on (``utils/tracing.py``).
     """
     device = _model_device(model)
     intr = torch.as_tensor(intrinsics, dtype=torch.float32, device=device)
@@ -211,17 +217,23 @@ def make_device_forward(model, intrinsics, img_size: int = 192,
     @torch.inference_mode()
     def fn(rgb_full, depth_raw, masks, bboxes, category, generator=None,
            v=None):
-        rgb_full, depth_raw, masks, bboxes, category = (
-            torch.as_tensor(a).to(device)
-            for a in (rgb_full, depth_raw, masks, bboxes, category))
-        filled = fill_missing(depth_raw[None].float())[0]
-        pre = preprocess_shared_image(
-            rgb_full, filled, masks, bboxes, intr, generator,
-            img_size=img_size, sample_num=sample_num, v=v)
-        inputs = {"rgb": pre["rgb"], "pts": pre["pts"],
-                  "choose": pre["choose"],
-                  "category_label": category.to(torch.int32)}
-        return model(inputs), pre["n_valid"]
+        frame = tracing.count("serve.frames") - 1
+        with tracing.span("serve", item=frame):
+            with tracing.span("h2d"):
+                arrays = (rgb_full, depth_raw, masks, bboxes, category)
+                tracing.count("h2d.bytes", tracing.host_bytes(arrays))
+                rgb_full, depth_raw, masks, bboxes, category = (
+                    torch.as_tensor(a).to(device) for a in arrays)
+            with tracing.span("fill"):
+                filled = fill_missing(depth_raw[None].float())[0]
+            with tracing.span("preprocess"):
+                pre = preprocess_shared_image(
+                    rgb_full, filled, masks, bboxes, intr, generator,
+                    img_size=img_size, sample_num=sample_num, v=v)
+            inputs = {"rgb": pre["rgb"], "pts": pre["pts"],
+                      "choose": pre["choose"],
+                      "category_label": category.to(torch.int32)}
+            return model(inputs), pre["n_valid"]
 
     fn.device = device
     return fn

@@ -22,6 +22,12 @@ the detached camera features. Its outputs add ``pts_w_local``,
 ``pts_w_local_gt`` and the auxiliary poses; ``supervised_loss`` turns them
 into the training loss. Dropout draws its masks from the
 ``torch.Generator`` passed to ``forward``.
+
+Under a profiler the forward is the span ``forward`` around
+``forward.rgb`` (the encoder and its gather, or ``sparse_points``),
+``forward.points``, ``forward.transform``, ``forward.estimate`` and, in
+training, ``forward.cam_enhancer`` and ``forward.world_enhancer``
+(``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from istnet_tpu_torch.nn.estimators import (
 )
 from istnet_tpu_torch.nn.pointnet2_msg import PointNet2MSG
 from istnet_tpu_torch.nn.resnet_psp import ModifiedResnet
+from istnet_tpu_torch.utils.tracing import span
 
 CAM_RADII = ((0.01, 0.02), (0.02, 0.04), (0.04, 0.08), (0.08, 0.16))
 WORLD_RADII = ((0.05, 0.10), (0.10, 0.20), (0.20, 0.30), (0.30, 0.40))
@@ -103,41 +110,50 @@ class ISTNet(nn.Module):
 
     def forward(self, inputs: dict,
                 generator: torch.Generator | None = None) -> dict:
-        precision.apply_policy()
-        rgb, pts, choose = inputs["rgb"], inputs["pts"], inputs["choose"]
-        cls = inputs["category_label"].reshape(-1)
+        with span("forward"):
+            precision.apply_policy()
+            rgb, pts, choose = inputs["rgb"], inputs["pts"], inputs["choose"]
+            cls = inputs["category_label"].reshape(-1)
 
-        c = pts.mean(dim=1, keepdim=True)
-        pts = pts - c
-        encoder = self.rgb_cam_extractor
-        if self.sparse_eval_head and not self.training:
-            rgb_local = encoder.sparse_points(rgb, choose)
-        else:
-            rgb_local = gather_by_choose(encoder(rgb, generator), choose)
-        pts_local = self.pts_cam_extractor(pts)
-        pts_w, pts_w_local = self.implicit_transform(rgb_local, pts_local,
-                                                     pts, cls)
-        r, t, s = self.main_estimator(pts, pts_w, rgb_local, pts_local,
-                                      pts_w_local)
-        c = c.squeeze(1)
-        out = {"pred_qo": pts_w, "pred_rotation": r,
-               "pred_translation": t + c, "pred_size": s}
-        if not self.training:
+            c = pts.mean(dim=1, keepdim=True)
+            pts = pts - c
+            encoder = self.rgb_cam_extractor
+            with span("forward.rgb"):
+                if self.sparse_eval_head and not self.training:
+                    rgb_local = encoder.sparse_points(rgb, choose)
+                else:
+                    rgb_local = gather_by_choose(encoder(rgb, generator),
+                                                 choose)
+            with span("forward.points"):
+                pts_local = self.pts_cam_extractor(pts)
+            with span("forward.transform"):
+                pts_w, pts_w_local = self.implicit_transform(
+                    rgb_local, pts_local, pts, cls)
+            with span("forward.estimate"):
+                r, t, s = self.main_estimator(pts, pts_w, rgb_local,
+                                              pts_local, pts_w_local)
+            c = c.squeeze(1)
+            out = {"pred_qo": pts_w, "pred_rotation": r,
+                   "pred_translation": t + c, "pred_size": s}
+            if not self.training:
+                return out
+            with span("forward.cam_enhancer"):
+                r_cam, t_cam, s_cam = self.cam_enhancer(pts, rgb_local,
+                                                        pts_local)
+            with span("forward.world_enhancer"):
+                pose_w, pts_w_local_gt = self.world_enhancer(
+                    pts, inputs["qo"], rgb_local, pts_local,
+                    self.freeze_world_enhancer)
+            out.update(pts_w_local=pts_w_local, pts_w_local_gt=pts_w_local_gt,
+                       pred_rotation_aux_cam=r_cam,
+                       pred_translation_aux_cam=t_cam + c,
+                       pred_size_aux_cam=s_cam)
+            if pose_w is not None:
+                r_w, t_w, s_w = pose_w
+                out.update(pred_rotation_aux_world=r_w,
+                           pred_translation_aux_world=t_w + c,
+                           pred_size_aux_world=s_w)
             return out
-        r_cam, t_cam, s_cam = self.cam_enhancer(pts, rgb_local, pts_local)
-        pose_w, pts_w_local_gt = self.world_enhancer(
-            pts, inputs["qo"], rgb_local, pts_local,
-            self.freeze_world_enhancer)
-        out.update(pts_w_local=pts_w_local, pts_w_local_gt=pts_w_local_gt,
-                   pred_rotation_aux_cam=r_cam,
-                   pred_translation_aux_cam=t_cam + c,
-                   pred_size_aux_cam=s_cam)
-        if pose_w is not None:
-            r_w, t_w, s_w = pose_w
-            out.update(pred_rotation_aux_world=r_w,
-                       pred_translation_aux_world=t_w + c,
-                       pred_size_aux_world=s_w)
-        return out
 
 
 def supervised_loss(end_points: dict, labels: dict, gamma1: float,

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from istnet_tpu_torch.nn.precision import compute_dtype
+from istnet_tpu_torch.utils.tracing import span
 
 
 def cast(t: torch.Tensor | None) -> torch.Tensor | None:
@@ -94,7 +95,8 @@ class BatchNorm(nn.Module):
     ``batch_mean`` / ``batch_var`` (JAX's ``bn_batch`` collection). The
     forward never touches ``running_*``: the train step applies the EMA
     with the scheduled momentum after the update
-    (``train/train_state.py::update_bn_stats``).
+    (``train/train_state.py::update_bn_stats``). Under a profiler each
+    forward is the span ``bn`` (``utils/tracing.py``).
 
     The batch variance is two-pass (``torch.var_mean``), not JAX's float32
     one-pass ``E[x^2] - E[x]^2`` (``layers.py:205-207``). The one-pass form
@@ -132,22 +134,24 @@ class BatchNorm(nn.Module):
         return self.weight, self.bias, self.running_mean, self.running_var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xs = x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
-        if self.training:
-            axes = tuple(range(x.dim() - 1))
-            if self.group is not None and self.group.size() > 1:
-                mean, var, count = _global_moments(xs, axes, self.group)
-                correction = count / (count - 1).clamp(min=1)
+        with span("bn"):
+            xs = x.to(torch.float64 if x.dtype == torch.float64
+                      else torch.float32)
+            if self.training:
+                axes = tuple(range(x.dim() - 1))
+                if self.group is not None and self.group.size() > 1:
+                    mean, var, count = _global_moments(xs, axes, self.group)
+                    correction = count / (count - 1).clamp(min=1)
+                else:
+                    var, mean = torch.var_mean(xs, dim=axes, correction=0)
+                    count = x.numel() // x.shape[-1]
+                    correction = count / max(count - 1, 1)
+                self.batch_mean = mean.detach()
+                self.batch_var = var.detach() * correction
+                y = (xs - mean) * torch.rsqrt(var + self.eps)
             else:
-                var, mean = torch.var_mean(xs, dim=axes, correction=0)
-                count = x.numel() // x.shape[-1]
-                correction = count / max(count - 1, 1)
-            self.batch_mean = mean.detach()
-            self.batch_var = var.detach() * correction
-            y = (xs - mean) * torch.rsqrt(var + self.eps)
-        else:
-            y = (xs - self.running_mean) * self.invstd()
-        return (y * self.weight + self.bias).to(x.dtype)
+                y = (xs - self.running_mean) * self.invstd()
+            return (y * self.weight + self.bias).to(x.dtype)
 
     def invstd(self) -> torch.Tensor:
         return torch.rsqrt(self.running_var + self.eps)

@@ -17,7 +17,9 @@ first hit, so ties are exact).
 
 Submodule names follow the reference torch keys (``SA_modules.{i}.mlps.{j}
 .layer{k}.conv`` / ``.normlayer.bn``, ``FP_modules.{i}.mlp.layer{k}``), so
-a reference state dict loads as it is. Layout is channel-last.
+a reference state dict loads as it is. Layout is channel-last. Under a
+profiler each stage is a span, ``sa1``-``sa4`` and ``fp1``-``fp4``, its
+FPS, grouping or 3-NN inside it (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -32,10 +34,14 @@ from istnet_tpu_torch import ops
 from istnet_tpu_torch.nn.layers import BatchNorm, DerivedCache, pointwise
 from istnet_tpu_torch.nn.precision import compute_dtype
 from istnet_tpu_torch.ops.sa_fused import pack_folded
+from istnet_tpu_torch.utils.tracing import span
 
 SA_MLPS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256))
 SA_NSAMPLES = (16, 32)
 FP_MLPS = ((128, 128), (256, 256), (256, 256), (512, 512))
+# the stages' spans (``utils/tracing.py``): FP_modules[i] is fp{i + 1}
+SA_SPANS = ("sa1", "sa2", "sa3", "sa4")
+FP_SPANS = ("fp1", "fp2", "fp3", "fp4")
 
 
 class _NormLayer(nn.Module):
@@ -182,11 +188,13 @@ class PointNet2MSG(nn.Module):
             raise ValueError(f"PointNet2MSG takes (B, N, 3) points, got "
                              f"{tuple(xyz.shape)}")
         l_xyz, l_feats = [xyz], [None]
-        for sa in self.SA_modules:
-            nxyz, nfeat = sa(l_xyz[-1], l_feats[-1])
+        for i, sa in enumerate(self.SA_modules):
+            with span(SA_SPANS[i]):
+                nxyz, nfeat = sa(l_xyz[-1], l_feats[-1])
             l_xyz.append(nxyz)
             l_feats.append(nfeat)
         for i in range(-1, -(len(self.FP_modules) + 1), -1):
-            l_feats[i - 1] = self.FP_modules[i](
-                l_xyz[i - 1], l_xyz[i], l_feats[i - 1], l_feats[i])
+            with span(FP_SPANS[i]):
+                l_feats[i - 1] = self.FP_modules[i](
+                    l_xyz[i - 1], l_xyz[i], l_feats[i - 1], l_feats[i])
         return l_feats[0]

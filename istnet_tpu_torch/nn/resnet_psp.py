@@ -18,7 +18,10 @@ statistics) and PReLU, as JAX does (``fold_kernel=not train``,
 ``Dropout2d`` applications (``drop_1`` once, ``drop_2`` twice, each with a
 mask of its own from the caller's generator). Submodule names follow the
 reference torch keys (``model.feats.*``, ``model.psp.stages.{i}.1``,
-``model.up_{1,2,3}.conv.{1,2,3}``, ``model.final.{0,1,2}``).
+``model.up_{1,2,3}.conv.{1,2,3}``, ``model.final.{0,1,2}``). Under a
+profiler the stages are the spans ``feats``, ``psp`` (with ``drop_1``),
+``up_1``, ``up_2`` (each with ``drop_2``) and ``up_3`` (with the final
+head, dense or sparse; ``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from istnet_tpu_torch.nn.layers import (
 from istnet_tpu_torch.nn import precision
 from istnet_tpu_torch.nn.precision import compute_dtype
 from istnet_tpu_torch.ops.fold_upsample import pack_fold
+from istnet_tpu_torch.utils.tracing import span
 
 class BasicBlock(nn.Module):
     """3x3 -> 3x3 (``istnet_tpu/nn/resnet_psp.py:73-94``)."""
@@ -271,9 +275,14 @@ class ModifiedResnet(nn.Module):
     def _features96(self, x: torch.Tensor,
                     generator: torch.Generator | None = None) -> torch.Tensor:
         m = self.model
-        p = m.drop_1(m.psp(m.feats(x)), generator)
-        p = m.drop_2(m.up_1(p), generator)
-        return m.drop_2(m.up_2(p), generator)
+        with span("feats"):
+            f = m.feats(x)
+        with span("psp"):
+            p = m.drop_1(m.psp(f), generator)
+        with span("up_1"):
+            p = m.drop_2(m.up_1(p), generator)
+        with span("up_2"):
+            return m.drop_2(m.up_2(p), generator)
 
     def _final(self, v: torch.Tensor) -> torch.Tensor:
         f = self.model.final
@@ -283,18 +292,22 @@ class ModifiedResnet(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         precision.apply_policy()
         h = self._features96(x, generator)
-        h = resize_bilinear_align_corners(h, 2 * h.shape[1], 2 * h.shape[2])
-        up3 = self.model.up_3.conv
-        h = up3[3](up3[2](conv2d_nhwc(h, up3[1])))
-        return self._final(h)
+        with span("up_3"):
+            h = resize_bilinear_align_corners(h, 2 * h.shape[1],
+                                              2 * h.shape[2])
+            up3 = self.model.up_3.conv
+            h = up3[3](up3[2](conv2d_nhwc(h, up3[1])))
+            return self._final(h)
 
     def sparse_points(self, x: torch.Tensor, choose: torch.Tensor
                       ) -> torch.Tensor:
         """(B, H, W, 3), (B, N) flat pixel indices -> (B, N, 128)."""
         precision.apply_policy()
         up3 = self.model.up_3.conv
-        return _sparse_head(self._features96(x), choose, up3[1],
-                            lambda v: up3[3](up3[2](v)), self._final)
+        h = self._features96(x)
+        with span("up_3"):
+            return _sparse_head(h, choose, up3[1],
+                                lambda v: up3[3](up3[2](v)), self._final)
 
 
 def _axis_taps(center: torch.Tensor, scale: float, in_size: int):

@@ -29,7 +29,8 @@ each batch is copied through a fresh pinned buffer with
 pending copy). Every ``per_write`` iterations the running averages of the
 loss parts and of ``T_data`` (waiting for the batch and copying it),
 ``T_dispatch`` (enqueueing the step) and ``T_iter`` (the loop's period) go
-to the log and the scalar writer.
+to the log and the scalar writer. Under a profiler ``T_data``'s stretch is
+the span ``solver.data`` (``utils/tracing.py``).
 
 Data parallel: in a process group (``parallel/multihost.py``, one process
 a device) the Solver wraps the model with ``parallel.mesh.wrap_dp``
@@ -66,6 +67,7 @@ from istnet_tpu_torch.parallel.collectives import all_reduce_mean
 from istnet_tpu_torch.parallel.mesh import is_sharded, wrap_dp
 from istnet_tpu_torch.train import checkpoints
 from istnet_tpu_torch.train.train_state import TrainConfig, train_step
+from istnet_tpu_torch.utils import tracing
 from istnet_tpu_torch.utils.logging import LogBuffer, MetricWriter
 
 LABEL_KEYS = ("rotation_label", "translation_label", "size_label", "qo")
@@ -94,18 +96,21 @@ def to_device(batch: dict, device: torch.device,
     """Numpy leaves of a split (``{"inputs", "labels"}``) or a flat raw
     batch -> tensors on ``device``, floats in ``float_dtype`` but the raw
     depth, which stays float32 (the fill runs in float32); to a card
-    through a fresh pinned buffer, without waiting."""
+    through a fresh pinned buffer, without waiting. The span ``h2d`` and
+    the counter ``h2d.bytes`` (``utils/tracing.py``)."""
     def put(key: str, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
+        tracing.count("h2d.bytes", t.numel() * t.element_size())
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         else:
             t = t.to(device)
         return (t.to(float_dtype) if t.is_floating_point()
                 and key != "depth_raw" else t)
-    return {k: ({kk: put(kk, vv) for kk, vv in v.items()}
-                if isinstance(v, dict) else put(k, v))
-            for k, v in batch.items()}
+    with tracing.span("h2d"):
+        return {k: ({kk: put(kk, vv) for kk, vv in v.items()}
+                    if isinstance(v, dict) else put(k, v))
+                for k, v in batch.items()}
 
 
 def in_dtype(batch: dict, float_dtype: torch.dtype) -> dict:
@@ -292,15 +297,23 @@ class Solver:
             # drain that ends a window)
             records[-1]["T_iter"] = now - t_start
 
+        batches = enumerate(iters)
         t_data0 = time.perf_counter()
-        for i, (syn_np, real_np) in enumerate(iters):
+        while True:
+            with tracing.span("solver.data"):
+                got = next(batches, None)
+                if got is not None:
+                    i, (syn_np, real_np) = got
+                    merged = (concat_batches(syn_np, real_np)
+                              if real_np is not None else syn_np)
+                    if self.preprocess_fn is None:
+                        merged = split_batch(merged)
+                    batch = to_device(merged, self.device, self.dtype)
+            if got is None:
+                break
             if records:
                 end_iteration(t_data0)
             t_start = t_data0
-            merged = concat_batches(syn_np, real_np) if real_np is not None else syn_np
-            if self.preprocess_fn is None:
-                merged = split_batch(merged)
-            batch = to_device(merged, self.device, self.dtype)
             t0 = time.perf_counter()
             parts = train_step(self.model, self.optimizer, batch, self.step,
                                self.generator, self.train_cfg,

@@ -36,6 +36,10 @@
   ``istnet_tpu/cli/train.py`` and ``make_optimizer`` read it; its
   ``model_arch`` picks the loss: ``ist_net`` (``supervised_loss``) or
   ``posenet_gt`` (PoseNetGT's pose distance).
+- Under a profiler a step is the span ``step`` (its item the step count)
+  around ``step.prepare``, ``step.start``, ``step.loss`` (the model's
+  ``forward`` inside), ``step.backward`` and ``step.update`` (``adam``,
+  then ``bn_ema``; ``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from istnet_tpu_torch.models.ist_net import supervised_loss
 from istnet_tpu_torch.nn.layers import BatchNorm
 from istnet_tpu_torch.parallel.mesh import unwrap
 from istnet_tpu_torch.train.schedules import bn_momentum, cyclic_triangular_lr
+from istnet_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,8 +196,10 @@ def deterministic_cudnn():
 def finish_step(model: torch.nn.Module, optimizer: torch.optim.Adam,
                 step: int, cfg: TrainConfig) -> None:
     """The update after the backward: Adam, then the scheduled BN EMA."""
-    optimizer.step()
-    update_bn_stats(model, cfg.momentum(step))
+    with span("adam"):
+        optimizer.step()
+    with span("bn_ema"):
+        update_bn_stats(model, cfg.momentum(step))
 
 
 def prepare_batch(batch: dict, generator: torch.Generator,
@@ -218,10 +225,17 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Adam,
     (``prepare_batch``) and the dropout masks from ``generator``. Returns
     the detached loss parts (``total`` and the terms of
     ``supervised_loss``)."""
-    batch = prepare_batch(batch, generator, preprocess_fn, augment_fn)
-    start_step(model, optimizer, step, cfg)
-    with deterministic_cudnn():
-        total, parts = step_loss(model, batch, generator, cfg)
-        total.backward()
-    finish_step(model, optimizer, step, cfg)
-    return {k: v.detach() for k, v in parts.items()}
+    with span("step", item=step):
+        with span("step.prepare"):
+            batch = prepare_batch(batch, generator, preprocess_fn,
+                                  augment_fn)
+        with span("step.start"):
+            start_step(model, optimizer, step, cfg)
+        with deterministic_cudnn():
+            with span("step.loss"):
+                total, parts = step_loss(model, batch, generator, cfg)
+            with span("step.backward"):
+                total.backward()
+        with span("step.update"):
+            finish_step(model, optimizer, step, cfg)
+        return {k: v.detach() for k, v in parts.items()}

@@ -12,17 +12,17 @@ in PyTorch's idiom, with JAX's names and units:
   op or ``record_function`` that launched the kernel (the port's own
   kernels launch from their wrappers, outside any op unless a
   ``record_function`` or an autograd Function is around them), and
-  ``scope``, the ``record_function`` blocks around the launch (JAX's
-  ``tf_op`` is the name-scope path of the two).
+  ``scope``, the ``record_function`` blocks and program spans around the
+  launch (JAX's ``tf_op`` is the name-scope path of the two).
 - ``aggregate_ops(rows, key, top, calls)``: the rows summed by a key, per
   call.
 - ``cuda_ms`` and ``device_us``: CUDA-event and profiler timings of a
   callable on the card (``chip_smoke.py`` and the tools read them).
 - ``rounds_ms``: ms a call over several rounds of back-to-back calls, one
   synchronise a round (``bench_torch.py`` and its tools).
-- ``busy_and_span``, ``device_kernels``, ``owner_ranges``, ``attribute``,
-  ``attribute_rows`` and ``print_attribution``: a profile's device busy
-  share, and its device time by owning module and by kind (from the
+- ``busy_and_span``, ``device_kernels``, ``attribute``, ``attribute_rows``
+  and ``print_attribution``: a profile's device busy share, and its device
+  time by the program's span (``utils/tracing.py``) and by kind (from the
   profiler's event tree, or from a trace's rows;
   ``tools/profile_{train,fwd}_torch.py``).
 """
@@ -42,6 +42,8 @@ import time
 from typing import Callable
 
 import torch
+
+from istnet_tpu_torch.utils import tracing
 
 
 @contextlib.contextmanager
@@ -201,11 +203,16 @@ def _newest_trace(log_dir: str) -> str:
     return max(paths, key=os.path.getmtime)
 
 
+def _in_scope(event: dict) -> bool:
+    return (event.get("cat") == "user_annotation"
+            or event["name"].startswith(tracing.PREFIX))
+
+
 def _launching_ops(events: list[dict]) -> dict:
     """Correlation id of each launch -> ``(op, scope)``: the innermost CPU
     op or ``record_function`` around it on its thread, and the names of
-    the ``record_function`` blocks around it, outermost first, joined by
-    "/" ("" where there is none)."""
+    the ``record_function`` blocks and program spans (``utils/tracing.py``)
+    around it, outermost first, joined by "/" ("" where there is none)."""
     by_thread: dict = {}
     for e in events:
         if e.get("ph") != "X":
@@ -230,7 +237,7 @@ def _launching_ops(events: list[dict]) -> dict:
                 if corr is not None:
                     out[corr] = (stack[-1]["name"] if stack else "",
                                  "/".join(o["name"] for o in stack
-                                          if o.get("cat") == "user_annotation"))
+                                          if _in_scope(o)))
             else:
                 stack.append(e)
     return out
@@ -282,7 +289,6 @@ def aggregate_ops(rows: list[dict], key: str = "op", top: int = 30,
 # Device time by owner (torch.profiler events)
 # ---------------------------------------------------------------------------
 
-TAG = "owner:"
 REDUCTIONS = ("sum", "mean", "var", "norm", "max", "amax", "min", "std")
 _KERNEL_NAME = re.compile(r"[A-Za-z0-9_]*_kernel[A-Za-z0-9_]*")
 
@@ -302,59 +308,16 @@ def busy_and_span(intervals) -> tuple[float, float]:
     return busy + hi - lo, last - first
 
 
-@contextlib.contextmanager
-def owner_ranges(modules: dict, functions=()):
-    """``record_function`` ranges naming the owners: ``TAG + name`` around
-    the forward of each module of ``modules`` (``{module: name}``) and
-    around each call of the functions ``functions`` names (``(object,
-    attribute, name)``: ``object.attribute`` is wrapped for the block)."""
-    from torch.profiler import record_function
-
-    open_ranges = {}
-    hooks = []
-
-    def enter(module, _):
-        rf = record_function(TAG + modules[module])
-        rf.__enter__()
-        open_ranges.setdefault(id(module), []).append(rf)
-
-    def leave(module, _, __):
-        open_ranges[id(module)].pop().__exit__(None, None, None)
-
-    for m in modules:
-        hooks.append(m.register_forward_pre_hook(enter))
-        hooks.append(m.register_forward_hook(leave))
-
-    def wrap(fn, name):
-        def wrapped(*a, **k):
-            with record_function(TAG + name):
-                return fn(*a, **k)
-        return wrapped
-    # (object, attribute, its own value or None where it comes from the
-    # object's class, as a bound method does)
-    saved = [(obj, attr, vars(obj).get(attr)) for obj, attr, _ in functions]
-    for obj, attr, name in functions:
-        setattr(obj, attr, wrap(getattr(obj, attr), name))
-    try:
-        yield
-    finally:
-        for h in hooks:
-            h.remove()
-        for obj, attr, own in saved:
-            if own is None:
-                delattr(obj, attr)
-            else:
-                setattr(obj, attr, own)
-
-
-def _owner(evt) -> str | None:
+def _spans(evt) -> list[str]:
+    """The program's spans (``utils/tracing.py``) around a profiled event,
+    innermost first: the ``istnet:`` ranges among it and its CPU
+    parents."""
+    out = []
     while evt is not None:
-        if evt.name.startswith(TAG):
-            return evt.name[len(TAG):]
-        if evt.name.startswith("Optimizer.step#"):
-            return "Adam"
+        if evt.name.startswith(tracing.PREFIX):
+            out.append(evt.name[len(tracing.PREFIX):])
         evt = evt.cpu_parent
-    return None
+    return out
 
 
 def _kind(op_name: str) -> str:
@@ -378,8 +341,7 @@ def device_kernels(events) -> list:
     and the gaps between."""
     return [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith(TAG)]
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def kernel_label(kernel_name: str) -> str:
@@ -393,19 +355,21 @@ def attribute(events, use_cpu: bool = False) -> dict:
     """{(phase, owner, kind): us} over ``events`` (a profile of CPU ops
     and device activity): the device time of each kernel (with
     ``use_cpu``, each aten op's self CPU time) under the operation
-    that launched it. The phase is "backward" under an autograd node, whose
-    owner is that of the forward operation that recorded the node (the
-    profiler's sequence numbers), "update" for Adam and the BN EMA, else
-    "forward"; the owner is the innermost ``owner_ranges`` range; the kind
-    comes from the aten operation (``_kind``), and a kernel that no aten
-    operation launched (the port's, through ctypes) is its own kind,
-    ``"kernel " + kernel_label``."""
+    that launched it. The owner is the innermost program span
+    (``utils/tracing.py``) around the operation, "other" outside them. The
+    phase is "backward" under an autograd node, whose owner is that of the
+    forward operation that recorded the node (the profiler's sequence
+    numbers), "update" inside the span ``step.update`` (Adam and the BN
+    EMA), else "forward". The kind comes from the aten operation
+    (``_kind``), and a kernel that no aten operation launched (the port's,
+    through ctypes) is its own kind, ``"kernel " + kernel_label``, under
+    the span it was launched in."""
     cpu = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CPU]
     fwd_owner = {}
     for e in cpu:
         if e.sequence_nr >= 0 and not e.name.startswith("autograd::"):
-            fwd_owner.setdefault(e.sequence_nr, _owner(e))
+            fwd_owner.setdefault(e.sequence_nr, (_spans(e) or [None])[0])
     out = collections.Counter()
     for e in cpu:
         if use_cpu:
@@ -428,8 +392,9 @@ def attribute(events, use_cpu: bool = False) -> dict:
                 break
             node = node.cpu_parent
         if phase == "forward":
-            owner = _owner(e)
-            if owner in ("Adam", "BN EMA"):
+            spans = _spans(e)
+            owner = spans[0] if spans else None
+            if "step.update" in spans:
                 phase = "update"
         for kind, us in parts:
             out[(phase, owner or "other", kind)] += us
@@ -438,17 +403,18 @@ def attribute(events, use_cpu: bool = False) -> dict:
 
 def attribute_rows(rows) -> dict:
     """{("forward", owner, kind): us} over ``parse_trace``'s device rows
-    of a forward: each row under the innermost ``owner_ranges`` range
-    around its launch (its ``scope``; "other" outside them), its kind from
-    the operation that launched it (``_kind`` of an aten op; a row that no
-    aten op launched, as the port's wrappers launch theirs, under its own
-    name, ``"kernel " + kernel_label``). The trace links each launch to
+    of a forward: each row under the innermost program span
+    (``utils/tracing.py``) around its launch (its ``scope``; "other"
+    outside them), its kind from the operation that launched it (``_kind``
+    of an aten op; a row that no aten op launched, as the port's wrappers
+    launch theirs, under its own name, ``"kernel " + kernel_label``). The
+    trace links each launch to
     the ranges open on its thread, so every row counts, wherever the
     profiler's event tree would lose it."""
     out = collections.Counter()
     for r in rows:
-        owners = [part[len(TAG):] for part in r["scope"].split("/")
-                  if part.startswith(TAG)]
+        owners = [part[len(tracing.PREFIX):] for part in r["scope"].split("/")
+                  if part.startswith(tracing.PREFIX)]
         kind = (_kind(r["op"]) if r["op"].startswith("aten::")
                 else "kernel " + kernel_label(r["name"]))
         out[("forward", owners[-1] if owners else "other", kind)] += \
@@ -471,7 +437,7 @@ def print_attribution(table: dict, calls: int, unit: str,
         s = sum(kinds.values())
         parts = ", ".join(f"{k} {v / 1e3 / calls:.3f}"
                           for k, v in kinds.most_common())
-        print(f"[by module] {phase:8s} {owner:10s} {s / 1e3 / calls:8.3f} "
+        print(f"[by module] {phase:8s} {owner:18s} {s / 1e3 / calls:8.3f} "
               f"ms ({parts})")
     kinds = collections.Counter()
     for (_, _, kind), us in table.items():

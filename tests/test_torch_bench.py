@@ -257,8 +257,8 @@ def test_eval_bench_rehearsal_runs_every_mode_through_the_loops(
 
 def test_profile_fwd_rehearsal_attributes_the_forward_by_module(
         tools_path, f32_after, capsys):
-    """``tools/profile_fwd_torch.py --device cpu``: every module of the
-    forward has its row, and the rows sum to the printed total of all
+    """``tools/profile_fwd_torch.py --device cpu``: every program span of
+    the forward has its row, and the rows sum to the printed total of all
     events within 1%."""
     import profile_fwd_torch
 
@@ -270,10 +270,10 @@ def test_profile_fwd_rehearsal_attributes_the_forward_by_module(
             owner, ms = line[len("[by module] forward "):].split(" ms (")[0] \
                 .rsplit(None, 1)
             rows[owner.strip()] = float(ms)
-    for owner in ("rgb trunk", "rgb PSP", "rgb up_1", "rgb up_2",
-                  "rgb up_3 + head", "implicit transform", "pose heads",
-                  *(f"SA {i}" for i in range(1, 5)),
-                  *(f"FP {i}" for i in range(1, 5))):
+    for owner in ("feats", "psp", "up_1", "up_2", "up_3", "bn",
+                  "forward.transform", "forward.estimate",
+                  *(f"sa{i}" for i in range(1, 5)),
+                  *(f"fp{i}" for i in range(1, 5))):
         assert rows.get(owner, 0) > 0, (owner, sorted(rows))
     assert res["total_ms"] > 0
     assert abs(res["attributed_ms"] - res["total_ms"]) <= 0.01 * res[
@@ -294,52 +294,61 @@ def test_rounds_ms_counts_rounds_and_calls_on_the_cpu():
     assert t["min"] <= t["median"] <= t["max"]
 
 
-def test_owner_ranges_name_modules_and_functions_then_restore():
+def test_attribute_names_the_program_spans():
+    """``profiling.attribute`` takes the innermost program span around an
+    operation as its owner, a span inside ``step.update`` as the update,
+    and "other" outside every span; spans leave nothing behind once the
+    profiler stops."""
     from torch.profiler import ProfilerActivity, profile
 
     from istnet_tpu_torch.utils import profiling
+    from istnet_tpu_torch.utils.tracing import span
 
-    class Box:
-        def double(self, x):
-            return x * 2
-
-    lin, box = torch.nn.Linear(4, 4), Box()
-    with profiling.owner_ranges({lin: "lin"}, ((box, "double", "dbl"),)), \
-            profile(activities=[ProfilerActivity.CPU]) as prof:
+    lin = torch.nn.Linear(4, 4)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         with torch.no_grad():
-            box.double(lin(torch.ones(2, 4)))
+            with span("outer"):
+                y = lin(torch.ones(2, 4))
+                with span("inner"):
+                    y = y * 2
+            with span("step.update"):
+                with span("adam"):
+                    y = y + 1
+            y.sum()
     table = profiling.attribute(prof.events(), use_cpu=True)
-    owners = {owner for _, owner, _ in table}
-    assert {"lin", "dbl"} <= owners
-    assert ("forward", "lin", "GEMMs") in table
-    assert "double" not in vars(box) and not lin._forward_hooks \
-        and not lin._forward_pre_hooks
+    assert ("forward", "outer", "GEMMs") in table
+    assert ("forward", "inner", "elementwise") in table
+    assert ("update", "adam", "elementwise") in table
+    assert ("forward", "other", "reductions") in table
+    assert {owner for _, owner, _ in table} == {"outer", "inner", "adam",
+                                               "other"}
+    assert span("outer").__enter__() is None
     assert profiling.busy_and_span([(0, 2), (1, 3), (5, 6)]) == (4, 6)
 
 
 def test_attribute_rows_take_the_innermost_owner_and_name_port_kernels():
     """``profiling.attribute_rows`` on ``parse_trace``-shaped rows: the
-    innermost owner range of a row's scope, "other" outside any; an aten
+    innermost program span of a row's scope, "other" outside any; an aten
     op's kind, a kernel launched outside aten ops by its name."""
     from istnet_tpu_torch.utils import profiling
 
     rows = [
         {"name": "void istnet::fps_kernel<8, 2>(float const*)",
-         "dur_us": 10.0, "category": "kernel", "op": "owner:SA 1",
-         "scope": "owner:PointNet2MSG rest/owner:SA 1"},
+         "dur_us": 10.0, "category": "kernel", "op": "istnet:sa1",
+         "scope": "istnet:forward/istnet:forward.points/istnet:sa1"},
         {"name": "void istnet::fps_kernel<8, 2>(float const*)",
-         "dur_us": 2.0, "category": "kernel", "op": "owner:PointNet2MSG rest",
-         "scope": "forward 0/owner:PointNet2MSG rest"},
+         "dur_us": 2.0, "category": "kernel", "op": "istnet:forward.points",
+         "scope": "bench:forward/istnet:forward.points"},
         {"name": "elementwise_add", "dur_us": 4.0, "category": "kernel",
-         "op": "aten::add", "scope": "owner:pose heads"},
+         "op": "aten::add", "scope": "istnet:forward.estimate"},
         {"name": "gemm", "dur_us": 1.0, "category": "kernel",
          "op": "aten::mm", "scope": ""},
         {"name": "Memset (Device)", "dur_us": 0.5, "category": "gpu_memset",
-         "op": "aten::zero_", "scope": "owner:pose heads"},
+         "op": "aten::zero_", "scope": "istnet:forward.estimate"},
     ]
     assert profiling.attribute_rows(rows) == {
-        ("forward", "SA 1", "kernel fps_kernel"): 10.0,
-        ("forward", "PointNet2MSG rest", "kernel fps_kernel"): 2.0,
-        ("forward", "pose heads", "elementwise"): 4.5,
+        ("forward", "sa1", "kernel fps_kernel"): 10.0,
+        ("forward", "forward.points", "kernel fps_kernel"): 2.0,
+        ("forward", "forward.estimate", "elementwise"): 4.5,
         ("forward", "other", "GEMMs"): 1.0,
     }

@@ -558,9 +558,10 @@ def test_profile_tool_attributes_the_bf16_step_by_module(monkeypatch,
                                                          capsys):
     """``tools/profile_train_torch.py --device cpu`` (the rehearsal of its
     device attribution, CPU self time in place of device time) on the bf16
-    step: every owner shows up in its phase, each BN's backward under
-    BatchNorm through the profiler's sequence numbers, and the casts the
-    bf16 policy adds under their kind; the policy is float32 again after.
+    step: every program span shows up in its phase, each BN's backward
+    under ``bn`` through the profiler's sequence numbers, Adam and the BN
+    EMA under the update, and the casts the bf16 policy adds under their
+    kind; the policy is float32 again after.
     """
     from pathlib import Path
 
@@ -576,10 +577,12 @@ def test_profile_tool_attributes_the_bf16_step_by_module(monkeypatch,
     rows = {tuple(line.split()[2:4]): line
             for line in capsys.readouterr().out.splitlines()
             if line.startswith("[by module] ") and " ms (" in line}
-    for phase, owner in (("forward", "BatchNorm"), ("backward", "BatchNorm"),
-                         ("forward", "Dropout2d"), ("backward", "PReLU"),
-                         ("forward", "loss"), ("update", "Adam"),
-                         ("update", "BN"), ("forward", "other"),
-                         ("backward", "other")):
+    for phase, owner in (("forward", "bn"), ("backward", "bn"),
+                         ("forward", "psp"), ("backward", "up_1"),
+                         ("forward", "sa1"), ("backward", "fp4"),
+                         ("forward", "forward.world_enhancer"),
+                         ("backward", "forward.cam_enhancer"),
+                         ("forward", "step.loss"), ("update", "adam"),
+                         ("update", "bn_ema")):
         assert (phase, owner) in rows, (phase, owner, sorted(rows))
-    assert "casts" in rows[("backward", "BatchNorm")]
+    assert "casts" in rows[("backward", "bn")]

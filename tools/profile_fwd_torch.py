@@ -15,15 +15,18 @@ twice:
    share of the span;
 2. a trace of CPU ops and device activity (``utils/profiling.trace``,
    ``parse_trace``): the kernels with the most device time, then each
-   forward's device time by module and kind
-   (``utils/profiling.attribute_rows``: a row goes to the ranges open
-   around its launch on the host, so the port's kernels, launched through
-   ctypes outside any aten op, count too). The modules: the RGB encoder's trunk,
-   PSP, ``up_1`` and ``up_2`` (the fold, kernel 4, at bf16 and f32 eval),
-   the rest of the encoder (``up_3``'s conv, the final head and the
-   sparse point decode), PointNet2MSG's SA 1-4 and FP 1-4 (and the rest of
-   it), the implicit space transformation and the pose heads; time
-   outside them is "other". The kinds: convolutions, GEMMs, casts (copies
+   forward's device time by the program's span and kind
+   (``utils/profiling.attribute_rows``: a row goes to the innermost span
+   open around its launch on the host, so the port's kernels, launched
+   through ctypes outside any aten op, count too). The spans
+   (``utils/tracing.py``): the RGB encoder's ``feats``, ``psp``, ``up_1``,
+   ``up_2`` (the fold, kernel 4, at bf16 and f32 eval) and ``up_3`` (with
+   the final head and the sparse point decode), PointNet2MSG's
+   ``sa1``-``sa4`` and ``fp1``-``fp4`` (FPS, grouping and 3-NN inside
+   their stage), ``forward.transform``, ``forward.estimate``, every
+   BatchNorm's ``bn``, and what the forward runs outside them as
+   ``forward`` / ``forward.rgb`` / ``forward.points``; time outside every
+   span is "other". The kinds: convolutions, GEMMs, casts (copies
    included: the fold's copy of ``up_2``'s non-contiguous input is a
    "casts" row of ``up_2``), reductions, elementwise, and each of the
    port's kernels by name. The total of the trace's device rows is
@@ -48,23 +51,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 CALLS, TOP = 3, 40
-
-
-def forward_owners(model) -> tuple[dict, tuple]:
-    """``profiling.owner_ranges``' arguments for the eval forward: the
-    modules named above, and the encoder's ``sparse_points`` (no module
-    forward runs it)."""
-    psp = model.rgb_cam_extractor.model
-    pn = model.pts_cam_extractor
-    modules = {psp.feats: "rgb trunk", psp.psp: "rgb PSP",
-               psp.up_1: "rgb up_1", psp.up_2: "rgb up_2",
-               pn: "PointNet2MSG rest",
-               model.implicit_transform: "implicit transform",
-               model.main_estimator: "pose heads"}
-    modules.update({sa: f"SA {i + 1}" for i, sa in enumerate(pn.SA_modules)})
-    modules.update({fp: f"FP {i + 1}" for i, fp in enumerate(pn.FP_modules)})
-    return modules, ((model.rgb_cam_extractor, "sparse_points",
-                      "rgb up_3 + head"),)
 
 
 def profile_forward(batch: int, dtype: str, device: str, top: int = TOP
@@ -105,8 +91,7 @@ def profile_forward(batch: int, dtype: str, device: str, top: int = TOP
             print(f"{name}; B={batch} N=1024 {img}x{img} {dtype} eval "
                   f"forward, {CALLS} profiled forwards a run")
             if on_cpu:
-                with profiling.owner_ranges(*forward_owners(model)), \
-                        profile(activities=[ProfilerActivity.CPU]) as prof:
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
                     t0 = time.perf_counter()
                     run()
                     wall_ms = (time.perf_counter() - t0) * 1e3 / CALLS
@@ -130,8 +115,7 @@ def profile_forward(batch: int, dtype: str, device: str, top: int = TOP
                       f"({len(kernels) // CALLS} device events a forward): "
                       f"busy share {busy_us / span_us:.1%} of the span")
                 with tempfile.TemporaryDirectory() as d:
-                    with profiling.owner_ranges(*forward_owners(model)), \
-                            profiling.trace(d):
+                    with profiling.trace(d):
                         run()
                     rows = profiling.parse_trace(d)
                 for a in profiling.aggregate_ops(rows, key="name", top=top,

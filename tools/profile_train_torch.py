@@ -20,12 +20,15 @@ twice with ``torch.profiler``. Prints, for each profiled run on its own:
    most self device time, then the step's device time by module and kind
    (``attribute``).
 
-By module: each kernel's device time goes to the operation that launched
-it, and that operation to its owner: the innermost BatchNorm, Dropout2d or
-PReLU whose forward ran it, the loss (``supervised_loss``), Adam, or the
-BN EMA (``update_bn_stats``), else "other"; a backward operation takes the
-owner of the forward operation that recorded its autograd node (the
-profiler's sequence numbers), so a BN's backward counts as BN. The kind
+By span: each kernel's device time goes to the operation that launched
+it, and that operation to the innermost of the program's spans around it
+(``utils/tracing.py``): ``bn`` for every BatchNorm, the model's stages
+(``feats`` ... ``up_3``, ``sa1``-``sa4`` with their FPS and grouping,
+``fp1``-``fp4``, ``forward.*``), the loss (``step.loss``), ``adam`` and
+``bn_ema`` (phase "update"), the input pipeline (``step.prepare``), else
+"other"; a backward operation takes the span of the forward operation
+that recorded its autograd node (the profiler's sequence numbers), so a
+BN's backward counts as ``bn``. The kind
 comes from the aten operation: convolutions (cuDNN), GEMMs (cuBLAS),
 casts (``aten::_to_copy`` / ``copy_``), reductions (sums, means,
 variances, norms, maxima), else elementwise; a kernel that no aten
@@ -51,19 +54,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 BATCH, STEPS, TOP = 24, 3, 40
-OWNERS = ("BatchNorm", "Dropout2d", "PReLU")
-
-
-def train_owners(model, train_state) -> tuple[dict, tuple]:
-    """``profiling.owner_ranges``' arguments for the train step: every
-    BatchNorm, Dropout2d and PReLU by its type's name, the loss and the BN
-    EMA (Adam is named by the profiler's own range of its step)."""
-    modules = {m: type(m).__name__ for m in model.modules()
-               if type(m).__name__ in OWNERS}
-    return modules, ((train_state, "supervised_loss", "loss"),
-                     (train_state, "update_bn_stats", "BN EMA"))
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--dtype", default="float32",
@@ -78,7 +68,6 @@ def main(argv=None) -> int:
 
     from istnet_tpu_torch.entry import build_train_model, make_train_batch
     from istnet_tpu_torch.nn import precision
-    from istnet_tpu_torch.train import train_state
     from istnet_tpu_torch.train.train_state import (
         TrainConfig,
         make_optimizer,
@@ -88,7 +77,6 @@ def main(argv=None) -> int:
         attribute,
         busy_and_span,
         device_kernels,
-        owner_ranges,
         print_attribution,
     )
     on_cpu = args.device == "cpu"
@@ -119,8 +107,7 @@ def main(argv=None) -> int:
         ("device only", [ProfilerActivity.CUDA]),
         ("CPU ops + device", [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
     for label, activities in runs:
-        with owner_ranges(*train_owners(model, train_state)), \
-                profile(activities=activities) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 train_step(model, opt, batch, step, gen, cfg)
