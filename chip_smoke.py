@@ -16,7 +16,8 @@ then for each compute policy, float32 and bf16 (the deployment precision):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the main path gives it (bf16: the fused SA kernel at SA
    stages 2-4 and at stage 1's shape, and the bf16 variants of grouping,
-   FP interpolation and fold);
+   FP interpolation and fold; the eval BN pass at each of the forward's
+   call sites, on the maps and statistics a forward hands it, bit-equal);
 4. forward: the full-width ISTNet eval forward (B=32, N=1024, 192x192)
    serving 3 batches, with the launch counts of every kernel;
 5. reference: the same model and inputs at B=2, on the card against the
@@ -301,10 +302,12 @@ BF16_GRAD_TOL = 2.0 ** -7
 BF16_FOLD_TOL = 1e-2    # as FOLD_TOL
 SA_TOL = 2e-2           # max|kernel - plain| / max(1, max|plain|)
 BF16_CPU_ATOL = 5e-3    # bf16 card vs bf16 CPU forward (measured <= 8.7e-4)
+# the eval BN pass: every BN of the encoder and the camera extractor but
+# up_2's (kernel 4's epilogue), and under bf16 but SA 2-4's 18 (kernel 5)
 F32_PER_FORWARD = {"fps": 4, "ball_query_group": 4, "fp_interpolate": 4,
-                   "fold_upsample": 1, "sa_fused": 0}
+                   "fold_upsample": 1, "sa_fused": 0, "bn_eval": 55}
 BF16_PER_FORWARD = {"fps": 4, "ball_query_group": 1, "fp_interpolate": 4,
-                    "fold_upsample": 1, "sa_fused": 3}
+                    "fold_upsample": 1, "sa_fused": 3, "bn_eval": 37}
 
 # the float32 train step at the training width (config/ist_net_default.yaml)
 TRAIN_BATCH, TRAIN_POINTS, TRAIN_IMG = 24, 1024, 192
@@ -314,13 +317,13 @@ FSDP_TIMING_ROUNDS = 3     # phase 33's plain/fsdp/fsdp/plain turns
 SCATTER_TOL = 1e-5      # normwise, as FP_REL_TOL (f32 sums in a fixed
                         # order of their own, the plain versions in theirs)
 # launches of one step: forward FPS / grouping / FP in both extractors
-# (fold and fused SA are eval-only); backward kernel 8 + grouping scatter
+# (fold, fused SA and the BN pass are eval-only); backward kernel 8 + grouping scatter
 # at SA 2-4 and kernel 10 + interpolation scatter at FP 1-4, of both
 # extractors, or of the camera extractor alone in the frozen recipe
 TRAIN_PER_STEP = {"fps": 8, "ball_query_group": 8, "fp_interpolate": 8,
                   "fold_upsample": 0, "sa_fused": 0, "ball_query": 6,
                   "group_scatter": 6, "three_nn": 8, "interp_scatter": 8,
-                  "depth_fill": 0}
+                  "depth_fill": 0, "bn_eval": 0}
 FROZEN_PER_STEP = {**TRAIN_PER_STEP, "ball_query": 3, "group_scatter": 3,
                    "three_nn": 4, "interp_scatter": 4}
 # PoseNetGT: forward FPS / grouping / FP in its camera and world
@@ -521,7 +524,37 @@ def kernel_cases(device, batch: int = 0, points: int = 1024):
             _f32(rng.uniform(-1, 1, (3, 3, cin, cout)) / np.sqrt(9 * cin),
                  device),
             _f32(rng.randn(cout) * 0.1, device), _f32(ep, device))))
+    cases["bn_eval"] = bn_eval_cases(device, torch.float32, batch, points)
     return cases
+
+
+def bn_eval_cases(device, dtype, batch: int, points: int = 1024) -> list:
+    """The eval BN pass's argument tuples at every call site of a
+    full-width eval forward of ``batch`` crops under ``dtype``: the maps,
+    statistics, residuals and slopes the forward hands it (up_1's map
+    permuted in memory, as its einsum leaves it; the PReLU's slope
+    detached, so that the wrapper takes it with grad mode on), recorded
+    from one forward that runs the pass's plain version."""
+    import torch
+
+    from istnet_tpu_torch.entry import build_model, make_inputs
+    from istnet_tpu_torch.ops import bn_eval, dispatch
+    sites = []
+
+    def record(*args):
+        sites.append(tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return bn_eval.plain(*args)
+
+    model = build_model(device, seed=21)
+    inputs = make_inputs(batch, points, seed=22, device=device)
+    real, dispatch.bn_eval = dispatch.bn_eval, record
+    try:
+        with policy(dtype), torch.inference_mode():
+            model(inputs)
+    finally:
+        dispatch.bn_eval = real
+    return sites
 
 
 def _folded(rng, c_in, channels, device):
@@ -584,6 +617,8 @@ def kernel_cases_bf16(device, batch: int = 0, points: int = 1024):
         cases["sa_fused"].append(
             ((radii, NSAMPLES, xyz, xyz[:, :m].contiguous(), feats, folded),
              on_path))
+    cases["bn_eval"] = [(args, True) for args
+                        in bn_eval_cases(device, bf16, batch, points)]
     return cases
 
 
@@ -712,6 +747,11 @@ def _label(name: str, args) -> str:
     if name == "depth_fill":
         empty = (args[0] <= 0.01).float().mean().item()
         return f"depth={tuple(args[0].shape)} empty={empty:.1%}"
+    if name == "bn_eval":
+        x, _, act, residual = args[:4]
+        return (f"x={tuple(x.shape)} {_dtype(x)}"
+                f"{'' if x.is_contiguous() else ' (permuted)'} "
+                f"{'residual + ' if residual is not None else ''}{act}")
     return f"x={tuple(args[0].shape)} cout={args[1].k.shape[-1]}"
 
 
@@ -722,6 +762,14 @@ def _check(name: str, got, want, bf16: bool) -> float:
     if name == "fps":
         if not torch.equal(got, want):
             raise AssertionError(f"fps indices differ at {tuple(got.shape)}")
+        return 0.0
+    if name == "bn_eval":
+        # the same arithmetic in the same order: equal in every bit
+        ints = torch.int16 if want.element_size() == 2 else torch.int32
+        if got.dtype != want.dtype or not torch.equal(
+                got.contiguous().view(ints), want.contiguous().view(ints)):
+            raise AssertionError(f"bn_eval differs at {tuple(got.shape)} "
+                                 f"{got.dtype}")
         return 0.0
     if name == "depth_fill":
         err = (got - want).abs().max().item()
@@ -1002,7 +1050,8 @@ def bound_ms(name: str, args, out) -> tuple[float, float]:
     centroids, layers 2..L once per slot row; the fold, reassociated: the channel contraction once per
     low-resolution pixel and each of the 9 taps; the interpolation after it
     is left out), ~6 a channel for a 3-point interpolation, 1 an added
-    element for the scatters. Depth fill, the least the function needs on
+    element for the scatters; none for the eval BN pass (~8 an element,
+    far below its bytes). Depth fill, the least the function needs on
     this input: ~36 a pixel for the windows every pixel passes (the three
     band crosses as separable running maxima ~20, the 5 x 5 closing as
     separable max and min ~16), and ~442 a pixel that is valid in the input
@@ -1051,9 +1100,14 @@ def bound_ms(name: str, args, out) -> tuple[float, float]:
     elif name == "depth_fill":
         f32 = (36.0 * args[0].numel()
                + 442.0 * float((args[0] > 0.01).sum().item()))
-    else:
+    elif name != "bn_eval":       # the eval BN pass: its bytes alone
         raise KeyError(name)
     return nbytes / HBM_BPS * 1e3, (f32 / F32_OPS + mma / BF16_OPS) * 1e3
+
+
+# the PyTorch call of ``library_call``, by kernel
+LIBRARY_CALLS = {"group_scatter": "index_add_", "interp_scatter": "index_add_",
+                 "bn_eval": "F.batch_norm"}
 
 
 def library_call(name: str, args):
@@ -1064,8 +1118,17 @@ def library_call(name: str, args):
     same rows, per radius for the grouping scatter (its centroid sums left
     out) and on the weighted rows, formed ahead, for the interpolation's;
     bf16 cotangents are widened to float32 ahead (``index_add_`` adds rows
-    of the output's dtype)."""
+    of the output's dtype). The eval BN pass: ``F.batch_norm`` at eval of
+    the map's memory as (rows, C), the BN alone (its consumer left out;
+    invstd handed over as the variance, which costs the same)."""
     import torch
+    if name == "bn_eval":
+        x, rows = args[:2]
+        c = x.shape[-1]
+        flat = torch.as_strided(x, (x.numel() // c, c), (c, 1))
+        mean, invstd, weight, bias = rows.unbind(0)
+        return lambda: torch.nn.functional.batch_norm(
+            flat, mean, invstd, weight, bias, False, 0.0, 1e-5)
     if name == "group_scatter":
         idx_list, grads, n = args
         b, c = grads[0].shape[0], grads[0].shape[-1]
@@ -1258,7 +1321,8 @@ def time_kernels(cases, tag: str = "") -> dict:
             by, op = bound_ms(name, args, kern(*args))
             note = ("" if on_path is True else " (off the path)"
                     if not on_path else f" (x{on_path} a step)")
-            lib_note = "" if lm is None else f", index_add_ {lm:.4f} ms"
+            lib_note = ("" if lm is None
+                        else f", {LIBRARY_CALLS[name]} {lm:.4f} ms")
             print(f"[timings] {tag}{name} {_label(name, args)}: kernel "
                   f"{km:.4f} ms, plain {pm:.4f} ms{lib_note}, bound "
                   f"{max(by, op):.5f} ms (bytes {by:.5f}, operations "
@@ -3376,7 +3440,8 @@ RANSAC_POINTS = (80 * 60, 20_000, 260_000)
 TRACE_KERNELS = {"fps": r"\bfps(_stream)?_kernel\b",
                  "ball_query_group": r"\bbq_group(_global)?_kernel\b",
                  "fp_interpolate": r"\bfp_interp_kernel\b",
-                 "fold_upsample": r"\bgemm_(f32|bf16)_kernel\b"}
+                 "fold_upsample": r"\bgemm_(f32|bf16)_kernel\b",
+                 "bn_eval": r"\bbn_eval(_scalar)?_kernel\b"}
 PROFILED_FORWARDS = 3
 
 
@@ -3400,7 +3465,7 @@ def phase_trunks(device) -> dict:
 
     from istnet_tpu_torch import ops
     from istnet_tpu_torch.entry import build_encoder, make_inputs
-    from istnet_tpu_torch.nn.layers import cast
+    from istnet_tpu_torch.nn.layers import BatchNorm, cast
     from istnet_tpu_torch.nn.resnet_psp import ModifiedResnet
     inp = make_inputs(BATCH, seed=28, device=device)
     rgb, choose = inp["rgb"], inp["choose"]
@@ -3413,6 +3478,8 @@ def phase_trunks(device) -> dict:
     for backend in TRUNKS:
         t0 = time.perf_counter()
         enc = build_encoder(backend, device, seed=28)
+        # the eval BN pass: every BN but up_2's, once a forward
+        bns = sum(isinstance(m, BatchNorm) for m in enc.modules()) - 1
         up_2_input = []
         hook = enc.model.up_2.register_forward_pre_hook(
             lambda mod, args: up_2_input.append(cast(args[0]))
@@ -3438,7 +3505,8 @@ def phase_trunks(device) -> dict:
                 sparse = enc.sparse_points(rgb, choose)
                 torch.cuda.synchronize()
                 counts = ops.launch_counts()
-                want = {k: 2 * TRUNK_PER_FORWARD.get(k, 0) for k in counts}
+                per_forward = {**TRUNK_PER_FORWARD, "bn_eval": bns}
+                want = {k: 2 * per_forward.get(k, 0) for k in counts}
                 if counts != want:
                     raise AssertionError(f"trunks {backend} {tag}: launches "
                                          f"{counts}, expected {want}")
@@ -3826,7 +3894,9 @@ def phase_profiling(model, device) -> None:
             counts = ops.launch_counts()
             rows = profiling.parse_trace(d)
     last = f"forward {PROFILED_FORWARDS - 1}"
-    mine = [r for r in rows if r["scope"] == last]
+    # the scope runs from the outermost block: the forward's, then the
+    # program's spans inside it (utils/tracing.py)
+    mine = [r for r in rows if r["scope"].split("/")[0] == last]
     seen = {name: sum(bool(re.search(pattern, r["name"])) for r in mine)
             for name, pattern in TRACE_KERNELS.items()}
     want = {name: counts[name] // PROFILED_FORWARDS for name in TRACE_KERNELS}
@@ -3898,11 +3968,11 @@ BENCH_EVAL_IMAGES = 64
 # phase 5's bounds under each policy
 BENCH_ROW_TOL = {"float32": CPU_ATOL, "bfloat16": BF16_CPU_ATOL}
 # every kernel the bench's paths launch: the eval forward's (1-5, 5 under
-# bf16 only), the train step's backward (8, 10, the scatters) and the
+# bf16 only, and the eval BN pass), the train step's backward (8, 10, the scatters) and the
 # device pipeline's fill (11)
 BENCH_KERNELS = ("fps", "ball_query_group", "fp_interpolate", "fold_upsample",
                  "sa_fused", "ball_query", "group_scatter", "three_nn",
-                 "interp_scatter", "depth_fill")
+                 "interp_scatter", "depth_fill", "bn_eval")
 
 
 def phase_bench(device, models: dict) -> tuple:
@@ -4231,8 +4301,8 @@ def main() -> int:
         for name in names:
             mod = dispatch.KERNELS[name]
             k_ms, p_ms, least, bound_by, l_ms = times[name]
-            # library_ms: index_add_ for the two scatters, null elsewhere
-            # (library_call says why)
+            # library_ms: LIBRARY_CALLS' call where there is one, null
+            # elsewhere (library_call says why)
             kernels.append({"name": name, "path": path, "dtype": dtype,
                             "route": "cuda", "source": mod.SOURCE,
                             "replaces": mod.REPLACES, "launches": counts[name],

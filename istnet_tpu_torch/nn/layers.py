@@ -114,7 +114,17 @@ class BatchNorm(nn.Module):
     both through the differentiable all-reduce, so the backward is the
     global-batch loss's gradient. ``batch_mean`` / ``batch_var`` are then
     the global statistics, and every rank's EMA is the same. A group of one
-    rank, or none, runs the single-process code; eval uses no collective."""
+    rank, or none, runs the single-process code; eval uses no collective.
+
+    ``norm_act`` is the entry of a call site whose BN output goes straight
+    into a ReLU (after a residual add, where given), a PReLU or nothing: at
+    eval, on a float32 or bf16 map that needs no gradient, BN and consumer
+    are one pass of ``ops.bn_eval`` (the CUDA kernel on the card, the same
+    expression in PyTorch on the CPU), with the same bits as the chain; the
+    pass reads ``eval_rows``, built once per set of statistics and affine
+    (a ``DerivedCache``, cleared by ``train()``). Training, a float64 map
+    and a call that records a gradient run ``forward`` and then the
+    consumer as PyTorch ops."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -128,10 +138,46 @@ class BatchNorm(nn.Module):
         self.batch_mean: torch.Tensor | None = None
         self.batch_var: torch.Tensor | None = None
         self.group = None
+        self._rows = DerivedCache()
+
+    def train(self, mode: bool = True):
+        self._rows.clear()
+        return super().train(mode)
 
     def eval_tensors(self) -> tuple:
         """What the eval transform is made from (a ``DerivedCache`` key)."""
         return self.weight, self.bias, self.running_mean, self.running_var
+
+    def eval_rows(self) -> torch.Tensor:
+        """(4, C) float32 ``[running_mean, invstd, weight, bias]``, the eval
+        pass's constants: a normal tensor without a graph, even when first
+        asked for under ``inference_mode``."""
+        def build():
+            with torch.inference_mode(False), torch.no_grad():
+                return torch.stack([self.running_mean, self.invstd(),
+                                    self.weight, self.bias])
+
+        return self._rows.get(self.eval_tensors(), None, build)
+
+    def norm_act(self, x: torch.Tensor, act: str | None = None,
+                 residual: torch.Tensor | None = None,
+                 slope: torch.Tensor | None = None) -> torch.Tensor:
+        """``act(self(x) [+ residual])``: ``act`` None, ``"relu"`` (the
+        residual added first, where given) or ``"prelu"`` with ``slope``,
+        the PReLU's weight (``PReLU.forward``'s expression)."""
+        if (self.training or x.dtype not in _PASS_DTYPES
+                or (torch.is_grad_enabled() and _needs_grad(
+                    x, self.weight, self.bias, residual, slope))):
+            y = self(x)
+            if act == "relu":
+                return F.relu(y if residual is None else y + residual)
+            if act == "prelu":
+                return prelu(y, slope)
+            return y
+        # ops imports this module (the fold's plain version)
+        from istnet_tpu_torch.ops import dispatch
+        with span("bn"):
+            return dispatch.bn_eval(x, self.eval_rows(), act, residual, slope)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("bn"):
@@ -155,6 +201,13 @@ class BatchNorm(nn.Module):
 
     def invstd(self) -> torch.Tensor:
         return torch.rsqrt(self.running_var + self.eps)
+
+
+_PASS_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _needs_grad(*tensors) -> bool:
+    return any(t is not None and t.requires_grad for t in tensors)
 
 
 def _global_moments(xs: torch.Tensor, axes: tuple, group):
@@ -184,7 +237,12 @@ class PReLU(nn.Module):
         self.weight = nn.Parameter(torch.full((1,), init))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+        return prelu(x, self.weight)
+
+
+def prelu(x: torch.Tensor, slope: torch.Tensor) -> torch.Tensor:
+    """``where(x >= 0, x, a * x)`` with the slope ``a`` in x's dtype."""
+    return torch.where(x >= 0, x, slope.to(x.dtype) * x)
 
 
 class Dropout2d(nn.Module):

@@ -27,7 +27,6 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from istnet_tpu_torch import ops
@@ -52,7 +51,8 @@ class _NormLayer(nn.Module):
 
 class _SharedMLPLayer(nn.Module):
     """Bias-free 1x1 conv + BN + ReLU (the JAX SharedMLP's dense bias is
-    folded into the BN running mean by the weight bridge, exact at eval)."""
+    folded into the BN running mean by the weight bridge, exact at eval);
+    BN and ReLU are one eval pass (``BatchNorm.norm_act``)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -60,7 +60,7 @@ class _SharedMLPLayer(nn.Module):
         self.normlayer = _NormLayer(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.normlayer.bn(pointwise(x, self.conv)))
+        return self.normlayer.bn.norm_act(pointwise(x, self.conv), "relu")
 
 
 class SharedMLP(nn.Sequential):

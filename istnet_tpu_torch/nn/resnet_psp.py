@@ -14,7 +14,9 @@ hand-written kernel of ``ops/fold_upsample.py`` on CUDA tensors, in either
 dtype, at eval only: its epilogue bakes in the running statistics, so in
 training ``up_2`` takes the plain fold and then its own BN (batch
 statistics) and PReLU, as JAX does (``fold_kernel=not train``,
-``istnet_tpu/nn/resnet_psp.py:222-229``). Training also runs the three
+``istnet_tpu/nn/resnet_psp.py:222-229``). Every other BN and the ReLU,
+residual add or PReLU that takes its output are one eval pass of
+``ops.bn_eval`` (``BatchNorm.norm_act``). Training also runs the three
 ``Dropout2d`` applications (``drop_1`` once, ``drop_2`` twice, each with a
 mask of its own from the caller's generator). Submodule names follow the
 reference torch keys (``model.feats.*``, ``model.psp.stages.{i}.1``,
@@ -63,9 +65,9 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(inplanes, planes, stride, self.expansion)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(conv2d_nhwc(x, self.conv1)))
-        out = self.bn2(conv2d_nhwc(out, self.conv2))
-        return F.relu(out + _residual(self, x))
+        out = self.bn1.norm_act(conv2d_nhwc(x, self.conv1), "relu")
+        out = conv2d_nhwc(out, self.conv2)
+        return self.bn2.norm_act(out, "relu", _residual(self, x))
 
 
 class Bottleneck(nn.Module):
@@ -86,10 +88,10 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(inplanes, planes, stride, self.expansion)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(conv2d_nhwc(x, self.conv1)))
-        out = F.relu(self.bn2(conv2d_nhwc(out, self.conv2)))
-        out = self.bn3(conv2d_nhwc(out, self.conv3))
-        return F.relu(out + _residual(self, x))
+        out = self.bn1.norm_act(conv2d_nhwc(x, self.conv1), "relu")
+        out = self.bn2.norm_act(conv2d_nhwc(out, self.conv2), "relu")
+        out = conv2d_nhwc(out, self.conv3)
+        return self.bn3.norm_act(out, "relu", _residual(self, x))
 
 
 def _downsample(inplanes: int, planes: int, stride: int, expansion: int):
@@ -106,7 +108,7 @@ def _downsample(inplanes: int, planes: int, stride: int, expansion: int):
 def _residual(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
     if block.downsample is None:
         return x
-    return block.downsample[1](conv2d_nhwc(x, block.downsample[0]))
+    return block.downsample[1].norm_act(conv2d_nhwc(x, block.downsample[0]))
 
 
 # block and stage depths of the reference's psp_models factory
@@ -151,7 +153,7 @@ class ResNetTrunk(nn.Module):
         self.fc = nn.Linear(inplanes, 1000)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(conv2d_nhwc(x, self.conv1)))
+        x = self.bn1.norm_act(conv2d_nhwc(x, self.conv1), "relu")
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = layer(x)
@@ -237,7 +239,13 @@ class PSPUpsample(nn.Module):
             y = ops.fold_upsample_conv(x, k, b)
         else:
             y = conv3x3_on_doubled(x, k, b)
-        return self.conv[3](self.conv[2](y))
+        return _bn_prelu(self.conv, 2, y)
+
+
+def _bn_prelu(seq: nn.Sequential, i: int, y: torch.Tensor) -> torch.Tensor:
+    """``seq[i + 1](seq[i](y))`` for a BatchNorm at ``i`` and the PReLU
+    after it: one eval pass (``BatchNorm.norm_act``)."""
+    return seq[i].norm_act(y, "prelu", slope=seq[i + 1].weight)
 
 
 class _PSPNet(nn.Module):
@@ -286,7 +294,7 @@ class ModifiedResnet(nn.Module):
 
     def _final(self, v: torch.Tensor) -> torch.Tensor:
         f = self.model.final
-        return f[2](f[1](pointwise(v, f[0])))
+        return _bn_prelu(f, 1, pointwise(v, f[0]))
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -296,7 +304,7 @@ class ModifiedResnet(nn.Module):
             h = resize_bilinear_align_corners(h, 2 * h.shape[1],
                                               2 * h.shape[2])
             up3 = self.model.up_3.conv
-            h = up3[3](up3[2](conv2d_nhwc(h, up3[1])))
+            h = _bn_prelu(up3, 2, conv2d_nhwc(h, up3[1]))
             return self._final(h)
 
     def sparse_points(self, x: torch.Tensor, choose: torch.Tensor
@@ -307,7 +315,7 @@ class ModifiedResnet(nn.Module):
         h = self._features96(x)
         with span("up_3"):
             return _sparse_head(h, choose, up3[1],
-                                lambda v: up3[3](up3[2](v)), self._final)
+                                lambda v: _bn_prelu(up3, 2, v), self._final)
 
 
 def _axis_taps(center: torch.Tensor, scale: float, in_size: int):

@@ -1,7 +1,8 @@
-"""Point-cloud ops, the fused SA stage, the fold-upsample conv and the depth
-completion, each a
+"""Point-cloud ops, the fused SA stage, the fold-upsample conv, the depth
+completion and the eval BatchNorm pass, each a
 hand-written CUDA kernel on CUDA tensors and its plain PyTorch version on
-CPU tensors (``dispatch.py``)."""
+CPU tensors (``dispatch.py``; the BN pass is ``dispatch.bn_eval``, beside
+its module ``ops.bn_eval``)."""
 
 from istnet_tpu_torch.ops.dispatch import (  # noqa: F401
     ball_query_group,

@@ -9,7 +9,9 @@ Gradients: on the card the grouping and the FP interpolation run as
 autograd Functions whose backward passes are kernels too (8 and the
 grouping scatter, 10 and the interpolation scatter); on the CPU the plain
 versions are differentiable as they stand. FPS gives indices, so it
-detaches its input.
+detaches its input. The eval BatchNorm pass is forward-only: a BatchNorm
+whose output needs a gradient runs its own chain of PyTorch ops
+(``nn/layers.py::BatchNorm.norm_act``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from istnet_tpu_torch.ops import ball_query as _bq
 from istnet_tpu_torch.ops import ball_query_group as _bqg
+from istnet_tpu_torch.ops import bn_eval as _bn
 from istnet_tpu_torch.ops import depth_fill as _df
 from istnet_tpu_torch.ops import fold_upsample as _fold
 from istnet_tpu_torch.ops import fp_interpolate as _fpi
@@ -40,6 +43,7 @@ KERNELS = {
     "three_nn": _tnn,
     "interp_scatter": _is,
     "depth_fill": _df,
+    "bn_eval": _bn,
 }
 _WRAPPERS = {
     "fps": _fps.furthest_point_sample_cuda,
@@ -52,6 +56,7 @@ _WRAPPERS = {
     "three_nn": _tnn.three_nn_cuda,
     "interp_scatter": _is.interp_scatter_cuda,
     "depth_fill": _df.fill_in_multiscale_cuda,
+    "bn_eval": _bn.bn_eval_cuda,
 }
 
 
@@ -122,3 +127,15 @@ def fill_in_multiscale(depth: torch.Tensor,
     if _on_cuda(depth):
         return _df.fill_in_multiscale_cuda(depth, max_depth)
     return _df.plain(depth, max_depth)
+
+
+def bn_eval(x: torch.Tensor, rows: torch.Tensor, act: str | None = None,
+            residual: torch.Tensor | None = None,
+            slope: torch.Tensor | None = None) -> torch.Tensor:
+    """The eval BatchNorm (``rows`` = [mean, invstd, weight, bias]) and its
+    consumer (``act`` None, "relu" with an optional residual added first,
+    or "prelu" with ``slope``), forward-only; an empty map launches
+    nothing."""
+    if _on_cuda(x) and x.numel():
+        return _bn.bn_eval_cuda(x, rows, act, residual, slope)
+    return _bn.plain(x, rows, act, residual, slope)

@@ -47,7 +47,13 @@ from istnet_tpu_torch.entry import (
     make_train_batch,
 )
 from istnet_tpu_torch.nn import layers, precision
-from istnet_tpu_torch.ops import dispatch, fold_upsample, sa_fused, scatter_invert
+from istnet_tpu_torch.ops import (
+    bn_eval,
+    dispatch,
+    fold_upsample,
+    sa_fused,
+    scatter_invert,
+)
 from istnet_tpu_torch.ops import pointnet2 as plain
 from istnet_tpu_torch.train.train_state import (
     TrainConfig,
@@ -74,6 +80,20 @@ def _f32(a, device):
 def _counts(**launched):
     """Every kernel's launch count: those named, 0 for the others."""
     return {name: launched.get(name, 0) for name in dispatch.KERNELS}
+
+
+def _eval_bns(model, dtype) -> int:
+    """The BatchNorms an eval forward of ``model`` runs as the eval BN
+    pass: the encoder's and the camera extractor's, but for up_2's (kernel
+    4's epilogue) and, under bf16, those of SA stages 2-4 (folded into
+    kernel 5)."""
+    skip = {id(m) for m in model.rgb_cam_extractor.model.up_2.modules()}
+    if dtype == torch.bfloat16:
+        skip |= {id(m) for sa in model.pts_cam_extractor.SA_modules[1:]
+                 for m in sa.modules()}
+    return sum(isinstance(m, layers.BatchNorm) and id(m) not in skip
+               for part in (model.rgb_cam_extractor, model.pts_cam_extractor)
+               for m in part.modules())
 
 
 @pytest.mark.parametrize("n,npoint", [(2048, 300), (1000, 77), (33, 33)])
@@ -312,7 +332,8 @@ def test_card_forward_matches_cpu_forward(cuda):
         ops.reset_launch_counts()
         got = model({k: v.to(cuda) for k, v in inputs.items()})
     assert ops.launch_counts() == _counts(fps=4, ball_query_group=4,
-                                          fp_interpolate=4, fold_upsample=1)
+                                          fp_interpolate=4, fold_upsample=1,
+                                          bn_eval=55)
     for k in want:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=1e-4)
 
@@ -457,11 +478,169 @@ def test_card_bf16_forward_matches_cpu_bf16_forward(cuda):
         precision.set_compute_dtype(old)
     assert ops.launch_counts() == _counts(fps=4, ball_query_group=1,
                                           fp_interpolate=4, fold_upsample=1,
-                                          sa_fused=3)
+                                          sa_fused=3, bn_eval=37)
     # measured <= 8.7e-4 (cuDNN and cuBLAS round bf16 after other sums)
     for k in want:
         assert got[k].dtype == torch.float32
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=5e-3)
+
+
+# ---------------------------------------------------------------------------
+# The eval BatchNorm pass (BN and its consumer in one launch)
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def _same_bits(got, want) -> bool:
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(_bits(got), _bits(want)))
+
+
+def _bn_sites(model, inputs, monkeypatch) -> list:
+    """The argument tuples of every eval BN pass of one forward."""
+    sites, real = [], dispatch.bn_eval
+
+    def record(*args):
+        sites.append(args)
+        return real(*args)
+
+    with monkeypatch.context() as m:
+        m.setattr(dispatch, "bn_eval", record)
+        with torch.inference_mode():
+            model(inputs)
+    return sites
+
+
+@pytest.mark.parametrize("dtype,batch", [(torch.bfloat16, 32),
+                                         (torch.bfloat16, 128),
+                                         (torch.float32, 32)],
+                         ids=["bf16-B32", "bf16-B128", "f32-B32"])
+def test_bn_eval_kernel_at_every_call_site_of_the_forward(cuda, dtype, batch,
+                                                          monkeypatch):
+    """Each eval BN pass of a full-width forward (the maps, statistics,
+    residuals and slopes the forward hands it, up_1's permuted map
+    included) through the kernel and through the plain version: the same
+    bits, the output in x's layout."""
+    model = build_model(cuda, seed=11)
+    inputs = make_inputs(batch, 1024, seed=12, device=cuda)
+    old = precision.compute_dtype()
+    precision.set_compute_dtype(dtype)
+    try:
+        sites = _bn_sites(model, inputs, monkeypatch)
+    finally:
+        precision.set_compute_dtype(old)
+    assert len(sites) == _eval_bns(model, dtype)
+    kern = dispatch.wrapper("bn_eval")
+    with torch.inference_mode():
+        for args in sites:
+            got, want = kern(*args), bn_eval.plain(*args)
+            assert got.stride() == args[0].stride()
+            assert _same_bits(got, want), (tuple(args[0].shape), args[2],
+                                           args[3] is not None)
+
+
+def _edge_values(rng, shape, dtype, device):
+    """Normal values with NaN, +-inf, -0.0 and 0.0 sprinkled in."""
+    a = (rng.randn(*shape) * 3).astype(np.float32)
+    flat = a.reshape(-1)
+    picks = rng.choice(flat.size, size=min(flat.size, 40), replace=False)
+    flat[picks] = np.resize(np.array([np.nan, np.inf, -np.inf, -0.0, 0.0],
+                                     np.float32), picks.size)
+    return _f32(a, device).to(dtype)
+
+
+def _laid_out(t, layout):
+    """``t`` as a contiguous map, a view 2 or 4 bytes off a 16-byte
+    boundary, or a map whose outer axes are permuted in memory."""
+    if layout == "misaligned":
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    if layout in ("permuted", "mixed"):
+        return t.permute(2, 0, 1, 3).contiguous().permute(1, 2, 0, 3)
+    return t
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "misaligned", "permuted",
+                                    "mixed"])
+@pytest.mark.parametrize("c", [3, 24, 64, 130, 2056])
+@pytest.mark.parametrize("act", ["none", "relu", "add_relu", "prelu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_eval_kernel_edges(cuda, dtype, act, c, layout):
+    """The kernel against the plain version bit for bit on NaN, +-inf and
+    +-0.0 in the map, the residual and the bias, for channel counts off the
+    vector width (3, 130: the scalar kernel), with rows of vectors that do
+    not divide the block (24, 2056), on views off a 16-byte boundary and on
+    permuted maps (a residual laid out otherwise: "mixed")."""
+    rng = np.random.RandomState(c)
+    shape = (2, 5, 7, c)
+    x = _laid_out(_edge_values(rng, shape, dtype, cuda), layout)
+    rows = torch.stack([_f32(rng.randn(c), cuda),
+                        torch.rsqrt(_f32(rng.rand(c), cuda) + 1e-5),
+                        _f32(rng.randn(c), cuda), _f32(rng.randn(c), cuda)])
+    rows[3, ::5] = -0.0
+    rows[2, 1::7] = 0.0
+    residual = slope = None
+    name = {"none": None, "add_relu": "relu"}.get(act, act)
+    if act == "add_relu":
+        residual = _edge_values(rng, shape, dtype, cuda)
+        residual = residual if layout == "mixed" else _laid_out(residual,
+                                                                layout)
+    if act == "prelu":
+        slope = _f32([0.2371], cuda)
+    args = (x, rows, name, residual, slope)
+    with torch.inference_mode():
+        got = dispatch.wrapper("bn_eval")(*args)
+        want = bn_eval.plain(*args)
+    assert _same_bits(got, want)
+    assert ops.launch_counts()["bn_eval"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_forward_is_bit_equal_to_the_plain_bn_pass(cuda, dtype,
+                                                        monkeypatch):
+    """The whole B=32 eval forward (sparse head) with the eval BN pass on
+    the card against the same forward with the pass's plain version: every
+    output equal in its bits; the pass launched once for each BN outside
+    kernels 4 and 5."""
+    model = build_model(cuda, seed=13)
+    inputs = make_inputs(32, 1024, seed=14, device=cuda)
+    old = precision.compute_dtype()
+    precision.set_compute_dtype(dtype)
+    try:
+        with torch.inference_mode():
+            got = model(inputs)
+            launched = ops.launch_counts()["bn_eval"]
+            monkeypatch.setattr(dispatch, "bn_eval", bn_eval.plain)
+            want = model(inputs)
+    finally:
+        precision.set_compute_dtype(old)
+    assert launched == _eval_bns(model, dtype) == {torch.float32: 55,
+                                                   torch.bfloat16: 37}[dtype]
+    assert ops.launch_counts()["bn_eval"] == launched
+    for k in want:
+        assert _same_bits(got[k], want[k]), k
+
+
+def test_bn_eval_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(2, 8, device=cuda)
+    rows = torch.zeros(4, 8, device=cuda)
+    kern = dispatch.wrapper("bn_eval")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kern(x.double(), rows)
+    with pytest.raises(ValueError, match="rows"):
+        kern(x, rows[:, :4])
+    with pytest.raises(ValueError, match="residual"):
+        kern(x, rows, "prelu", x, torch.ones(1, device=cuda))
+    with pytest.raises(ValueError, match="slope"):
+        kern(x, rows, "prelu")
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kern(x.requires_grad_(), rows)
+    assert ops.launch_counts()["bn_eval"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -1093,7 +1272,7 @@ def test_device_forward_runs_over_padded_and_near_empty_rows(cuda):
         assert t.shape[0] == 8 and torch.isfinite(t).all(), name
     assert ops.launch_counts() == _counts(
         depth_fill=1, fps=4, ball_query_group=4, fp_interpolate=4,
-        fold_upsample=1)
+        fold_upsample=1, bn_eval=55)
 
 
 def _full_width_config(name, **overrides):
@@ -1288,8 +1467,11 @@ def test_card_train_step_repeats_bit_for_bit(cuda):
         else:
             model.load_state_dict(init)
         cfg = TrainConfig()
+        ops.reset_launch_counts()
         parts = train_step(model, make_optimizer(model, cfg), batch, 0,
                            torch.Generator(device=cuda).manual_seed(1), cfg)
+        # train mode keeps every BN's own chain: no eval BN pass
+        assert ops.launch_counts()["bn_eval"] == 0
         runs.append(({k: v.cpu() for k, v in parts.items()},
                      {k: p.grad.cpu() for k, p in model.named_parameters()
                       if p.grad is not None}))
@@ -1387,7 +1569,8 @@ def test_resnet50_encoder_on_the_card_matches_the_cpu(cuda):
     and on the CPU against the CPU's float64 forward: the card's error at
     most twice the CPU's float32 error (50 blocks of BN-normalised random
     layers amplify rounding: the CPU's own float32 forward is ~1e-3 off);
-    the fold kernel launched once a forward."""
+    the fold kernel launched once a forward, the eval BN pass once for
+    every BN but up_2's."""
     import copy
 
     from istnet_tpu_torch.entry import build_encoder
@@ -1406,7 +1589,9 @@ def test_resnet50_encoder_on_the_card_matches_the_cpu(cuda):
         dense = enc(rgb.to(cuda))
         sparse = enc.sparse_points(rgb.to(cuda), choose.to(cuda))
         torch.cuda.synchronize()
-        assert ops.launch_counts() == _counts(fold_upsample=2)
+        bns = sum(isinstance(m, layers.BatchNorm) for m in enc.modules())
+        assert ops.launch_counts() == _counts(fold_upsample=2,
+                                              bn_eval=2 * (bns - 1))
         precision.set_compute_dtype(torch.float64)
         try:
             want = (cpu64(rgb.double()),

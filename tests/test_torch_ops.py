@@ -277,7 +277,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_other_devices_raise():
                 "three_nn": (xyz, xyz),
                 "interp_scatter": (xyz, torch.zeros(1, 16, 3, dtype=torch.int32),
                                    xyz, 16),
-                "depth_fill": (torch.zeros(1, 8, 8),)}[name]
+                "depth_fill": (torch.zeros(1, 8, 8),),
+                "bn_eval": (torch.zeros(2, 4), torch.zeros(4, 4))}[name]
         with pytest.raises(ValueError, match="must be on"):
             wrapper(*args)
     with pytest.raises(ValueError, match="no kernel"):
