@@ -1,11 +1,12 @@
 """Model FLOPs of the reference network, layer by layer from the
 configuration's shapes: 2 a multiply-add of every convolution and
 matrix product of the published IST-Net (``BASELINE.md``, "Per-instance
-forward FLOPs": ~36.4 GFLOP at 192 x 192 and 1024 points), whatever
-implements the work. ``up_3`` and the final head count at every pixel of
-the dense map, even where a program evaluates them at the chosen pixels
-only. BatchNorm, activations, pooling, resizes and the point-set
-searches are not counted.
+forward FLOPs": ~36.4 GFLOP at 192 x 192 and 1024 points), with the
+trunk the configuration names (``backbone``: ResNet-101's forward is
+~83.5 GFLOP there), whatever implements the work. ``up_3`` and the final
+head count at every pixel of the dense map, even where a program
+evaluates them at the chosen pixels only. BatchNorm, activations,
+pooling, resizes and the point-set searches are not counted.
 
 Training counts 3 x the forward of every trained module (forward and
 the two products of the backward) and 1 x the frozen world enhancer's
@@ -13,6 +14,8 @@ forward.
 """
 
 from __future__ import annotations
+
+from benchmark.reference.model import TRUNKS
 
 SA_MLPS = ((16, 16, 32), (32, 32, 64), (64, 64, 128), (128, 128, 256))
 SA_NSAMPLES = (16, 32)
@@ -27,24 +30,46 @@ def _mlp(cin: int, chans, rows: int) -> float:
     return total
 
 
-def encoder(img: int) -> float:
-    """ResNet-18 (stride 8) + PSP + up_1..3 + final at ``img`` x ``img``."""
-    def conv(cin, cout, k, hw):
-        return 2.0 * cin * cout * k * k * hw * hw
+def _conv(cin: int, cout: int, k: int, hw: int) -> float:
+    return 2.0 * cin * cout * k * k * hw * hw
 
+
+def trunk(img: int, backbone: str = "resnet18") -> tuple[float, int]:
+    """The stride-8 trunk's FLOPs at ``img`` x ``img`` and its width: every
+    block's convolutions and the 1x1 convolution of each downsample
+    branch, by the reference's table of trunks."""
+    block, depths = TRUNKS[backbone]
+    bottleneck = block.expansion == 4
     s2, s4, s8 = img // 2, img // 4, img // 8
-    f = conv(3, 64, 7, s2)
-    f += 4 * conv(64, 64, 3, s4)                                  # layer1
-    f += conv(64, 128, 3, s8) + conv(128, 128, 3, s8) + conv(64, 128, 1, s8) \
-        + 2 * conv(128, 128, 3, s8)                               # layer2
-    f += conv(128, 256, 3, s8) + conv(256, 256, 3, s8) + conv(128, 256, 1, s8) \
-        + 2 * conv(256, 256, 3, s8)                               # layer3
-    f += conv(256, 512, 3, s8) + conv(512, 512, 3, s8) + conv(256, 512, 1, s8) \
-        + 2 * conv(512, 512, 3, s8)                               # layer4
-    f += sum(2.0 * 512 * 512 * s * s for s in (1, 2, 3, 6))        # PSP stages
-    f += conv(512 * 5, 1024, 1, s8)                               # bottleneck
-    f += conv(1024, 256, 3, 2 * s8) + conv(256, 64, 3, 4 * s8) \
-        + conv(64, 64, 3, img) + conv(64, 128, 1, img)            # up_1..3, final
+    f = _conv(3, 64, 7, s2)
+    cin, hw = 64, s4
+    for (planes, stride), depth in zip(((64, 1), (128, 2), (256, 1), (512, 1)),
+                                       depths):
+        out = planes * block.expansion
+        for i in range(depth):
+            hw_out = s8 if stride == 2 else hw
+            if bottleneck:
+                f += (_conv(cin, planes, 1, hw)
+                      + _conv(planes, planes, 3, hw_out)
+                      + _conv(planes, out, 1, hw_out))
+            else:
+                f += _conv(cin, planes, 3, hw_out) + _conv(planes, planes, 3,
+                                                            hw_out)
+            if i == 0 and (stride != 1 or cin != out):
+                f += _conv(cin, out, 1, hw_out)
+            cin, hw, stride = out, hw_out, 1
+    return f, cin
+
+
+def encoder(img: int, backbone: str = "resnet18") -> float:
+    """The trunk (stride 8) + PSP at its width + up_1..3 + final at
+    ``img`` x ``img``."""
+    s8 = img // 8
+    f, width = trunk(img, backbone)
+    f += sum(2.0 * width * width * s * s for s in (1, 2, 3, 6))  # PSP stages
+    f += _conv(width * 5, 1024, 1, s8)                            # bottleneck
+    f += _conv(1024, 256, 3, 2 * s8) + _conv(256, 64, 3, 4 * s8) \
+        + _conv(64, 64, 3, img) + _conv(64, 128, 1, img)    # up_1..3, final
     return f
 
 
@@ -86,7 +111,7 @@ def deformer(n: int, nclass: int) -> float:
 def forward(cfg: dict) -> float:
     """Eval forward FLOPs of one instance."""
     n, img = cfg["sample_num"], cfg["img_size"]
-    return (encoder(img) + pointnet(n, cfg["sa_npoints"])
+    return (encoder(img, cfg["backbone"]) + pointnet(n, cfg["sa_npoints"])
             + deformer(n, cfg["num_category"]) + heavy(n))
 
 

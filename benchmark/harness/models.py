@@ -21,7 +21,8 @@ def reference(cfg: dict, seed: int, device, train: bool,
               precision: str = "float32") -> ref.ISTNet:
     m = weights.build_on(ref.ISTNet, device, cfg["num_category"],
                          tuple(cfg["sa_npoints"]),
-                         bool(cfg["freeze_world_enhancer"]))
+                         bool(cfg["freeze_world_enhancer"]),
+                         backbone=cfg["backbone"])
     m.load_state_dict(weights.make_state_dict(m, seed, device))
     m.set_precision(ref.Precision(precision))
     return m.train(train)
@@ -29,16 +30,21 @@ def reference(cfg: dict, seed: int, device, train: bool,
 
 def program(cfg: dict, seed: int, device, train: bool, dtype: str):
     """The port's ``ISTNet`` with the benchmark's weights, the port's
-    compute policy set to ``dtype`` (a global of the port)."""
+    compute policy set to ``dtype`` (a global of the port). A trunk other
+    than ResNet-18 is handed over as ``backbone=``, which a port whose
+    ``ISTNet`` builds ResNet-18 alone refuses with a ``TypeError``."""
     from istnet_tpu_torch.models.ist_net import ISTNet
     from istnet_tpu_torch.nn import precision
 
     precision.set_compute_dtype(DTYPES[dtype])
+    backbone = cfg["backbone"]
     shape = weights.build_on(ref.ISTNet, torch.device("meta"),
-                             cfg["num_category"], tuple(cfg["sa_npoints"]))
+                             cfg["num_category"], tuple(cfg["sa_npoints"]),
+                             backbone=backbone)
+    trunk = {} if backbone == "resnet18" else {"backbone": backbone}
     m = weights.build_on(ISTNet, device, nclass=cfg["num_category"],
                          sa_npoints=tuple(cfg["sa_npoints"]),
                          freeze_world_enhancer=bool(
-                             cfg["freeze_world_enhancer"]))
+                             cfg["freeze_world_enhancer"]), **trunk)
     m.load_state_dict(weights.make_state_dict(shape, seed, device))
     return m.train(train)

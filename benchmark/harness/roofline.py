@@ -13,7 +13,9 @@ convolution (the fused SA stage reassociated: layer 1 once a point and
 radius, its xyz rows in float32 for points and centroids, layers 2..L once
 a slot row; the fold: the channel contraction once a low-resolution pixel
 and tap), ~6 a channel for a 3-point interpolation, 1 an added element for
-the scatters; the depth fill ~36 a pixel plus ~442 a valid input pixel.
+the scatters; the depth fill ~36 a pixel plus ~442 a valid input pixel;
+the eval BatchNorm pass its bytes alone (its ~8 float32 operations an
+element take a tenth of its bytes' time or less).
 A kernel wrapper that the program adds later, with no formula here, is
 held to its bytes alone, which is still a lower bound, and is named on
 standard error; a call of a kernel with a formula whose arguments are
@@ -53,10 +55,11 @@ def _tensors(x):
                 yield from _tensors(getattr(x, f.name))
 
 
-#: the kernels whose operations are counted below
+#: the kernels with a formula below
 FORMULAS = frozenset({"fps", "ball_query_group", "ball_query", "sa_fused",
                       "fp_interpolate", "three_nn", "fold_upsample",
-                      "group_scatter", "interp_scatter", "depth_fill"})
+                      "group_scatter", "interp_scatter", "depth_fill",
+                      "bn_eval"})
 
 
 def bound_parts(name: str, args, out):
@@ -100,6 +103,11 @@ def bound_parts(name: str, args, out):
     elif name == "depth_fill":
         f32 = 36.0 * args[0].numel()
         valid = (args[0] > 0.01).sum()
+    elif name == "bn_eval":
+        x, rows = args[0], args[1]
+        if tuple(rows.shape) != (4, x.shape[-1]):
+            raise ValueError(f"bn_eval: rows {tuple(rows.shape)} for a map "
+                             f"of {x.shape[-1]} channels")
     return nbytes, f32, mma, valid
 
 

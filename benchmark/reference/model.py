@@ -4,11 +4,16 @@ precision the reference computes in.
 
 The network is the one the published code builds:
 
-- RGB encoder: a ResNet-18 trunk of stride 8 (the published code passes
-  dilation 2/4 to layers 3/4 and never applies it, so layers 3 and 4 run
-  at stride 1 and dilation 1 with 1x1 downsample branches), pyramid
-  pooling to 1/2/3/6 with bilinear (align_corners=False) upsampling and a
-  1x1 bottleneck, three x2 bilinear (align_corners=True) upsamplings each
+- RGB encoder: a ResNet trunk of stride 8, one of the published trunk
+  factory's (``psp_models`` in ``model/modules.py``): ResNet-18 (the
+  published configuration's), 34, 50, 101 or 152, BasicBlocks of 3x3 ->
+  3x3 or Bottlenecks of 1x1 -> 3x3 with the stride -> 1x1 to 4x the
+  planes. The published code passes dilation 2/4 to layers 3/4 and never
+  applies it, so layers 3 and 4 run at stride 1 and dilation 1 with 1x1
+  downsample branches, in every trunk. Then pyramid pooling of the
+  trunk's width (512, or 2048 for the Bottleneck trunks) to 1/2/3/6 with
+  bilinear (align_corners=False) upsampling and a 1x1 bottleneck to 1024
+  channels, three x2 bilinear (align_corners=True) upsamplings each
   followed by a 3x3 conv, BatchNorm and PReLU, and a 1x1 conv + BatchNorm
   + PReLU head to 128 channels at 192 x 192; Dropout2d 0.3 after the
   pyramid and 0.15 after ``up_1`` and ``up_2``.
@@ -167,6 +172,10 @@ def dropout(x, rate: float, training: bool, generator):
 
 
 class BasicBlock(Net):
+    """3x3 with the stride -> 3x3."""
+
+    expansion = 1
+
     def __init__(self, cin: int, planes: int, stride: int):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
@@ -187,20 +196,62 @@ class BasicBlock(Net):
         return F.relu(out + res)
 
 
-class Trunk(Net):
-    """ResNet-18 of stride 8."""
+class Bottleneck(Net):
+    """1x1 -> 3x3 with the stride -> 1x1 to 4x the planes, at dilation 1."""
 
-    def __init__(self):
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int, stride: int):
         super().__init__()
+        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = BatchNorm(planes * 4)
+        self.downsample = None
+        if stride != 1 or cin != planes * 4:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(cin, planes * 4, 1, stride, bias=False),
+                BatchNorm(planes * 4))
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv_nhwc(x, self.conv1)))
+        out = F.relu(self.bn2(self.conv_nhwc(out, self.conv2)))
+        out = self.bn3(self.conv_nhwc(out, self.conv3))
+        res = x if self.downsample is None else self.downsample[1](
+            self.conv_nhwc(x, self.downsample[0]))
+        return F.relu(out + res)
+
+
+#: the published trunk factory's blocks and stage depths
+TRUNKS = {"resnet18": (BasicBlock, (2, 2, 2, 2)),
+          "resnet34": (BasicBlock, (3, 4, 6, 3)),
+          "resnet50": (Bottleneck, (3, 4, 6, 3)),
+          "resnet101": (Bottleneck, (3, 4, 23, 3)),
+          "resnet152": (Bottleneck, (3, 8, 36, 3))}
+
+
+class Trunk(Net):
+    """The ResNet ``backbone`` (a key of ``TRUNKS``) of stride 8; its
+    output has ``width`` channels."""
+
+    def __init__(self, backbone: str = "resnet18"):
+        super().__init__()
+        if backbone not in TRUNKS:
+            raise ValueError(f"backbone {backbone!r}: one of {sorted(TRUNKS)}")
+        block, depths = TRUNKS[backbone]
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm(64)
         cin = 64
-        for i, (planes, stride) in enumerate(((64, 1), (128, 2), (256, 1),
-                                              (512, 1))):
-            self.add_module(f"layer{i + 1}", nn.Sequential(
-                BasicBlock(cin, planes, stride), BasicBlock(planes, planes, 1)))
-            cin = planes
-        self.fc = nn.Linear(512, 1000)     # in the state dict, never run
+        for i, ((planes, stride), depth) in enumerate(zip(
+                ((64, 1), (128, 2), (256, 1), (512, 1)), depths)):
+            blocks = [block(cin, planes, stride)]
+            cin = planes * block.expansion
+            blocks += [block(cin, planes, 1) for _ in range(depth - 1)]
+            self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
+        self.width = cin
+        self.fc = nn.Linear(cin, 1000)     # in the state dict, never run
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv_nhwc(x, self.conv1)))
@@ -211,13 +262,13 @@ class Trunk(Net):
 
 
 class PSP(Net):
-    def __init__(self):
+    def __init__(self, features: int = 512):
         super().__init__()
         self.stages = nn.ModuleList(
             nn.Sequential(nn.AdaptiveAvgPool2d(s),
-                          nn.Conv2d(512, 512, 1, bias=False))
+                          nn.Conv2d(features, features, 1, bias=False))
             for s in (1, 2, 3, 6))
-        self.bottleneck = nn.Conv2d(512 * 5, 1024, 1)
+        self.bottleneck = nn.Conv2d(features * 5, 1024, 1)
 
     def forward(self, x):
         h, w = x.shape[1:3]
@@ -250,10 +301,10 @@ class Upsample(Net):
 
 
 class PSPNet(Net):
-    def __init__(self):
+    def __init__(self, backbone: str = "resnet18"):
         super().__init__()
-        self.feats = Trunk()
-        self.psp = PSP()
+        self.feats = Trunk(backbone)
+        self.psp = PSP(self.feats.width)
         self.up_1 = Upsample(1024, 256)
         self.up_2 = Upsample(256, 64)
         self.up_3 = Upsample(64, 64)
@@ -264,9 +315,9 @@ class PSPNet(Net):
 class Encoder(Net):
     """(B, H, W, 3) -> (B, H, W, 128)."""
 
-    def __init__(self):
+    def __init__(self, backbone: str = "resnet18"):
         super().__init__()
-        self.model = PSPNet()
+        self.model = PSPNet(backbone)
 
     def forward(self, x, generator=None):
         m, t = self.model, self.training
@@ -463,10 +514,11 @@ class WorldEnhancer(nn.Module):
 
 class ISTNet(nn.Module):
     def __init__(self, nclass: int = 6, npoints=(512, 256, 128, 64),
-                 freeze_world_enhancer: bool = False):
+                 freeze_world_enhancer: bool = False,
+                 backbone: str = "resnet18"):
         super().__init__()
         self.freeze_world_enhancer = freeze_world_enhancer
-        self.rgb_cam_extractor = Encoder()
+        self.rgb_cam_extractor = Encoder(backbone)
         self.pts_cam_extractor = PointNet2MSG(CAM_RADII, npoints)
         self.implicit_transform = ImplicitTransformation(nclass)
         self.main_estimator = HeavyEstimator()

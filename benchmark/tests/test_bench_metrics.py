@@ -12,7 +12,8 @@ from benchmark.harness.trace import busy_and_span, merged
 from benchmark.harness.window import Window, percentile
 
 N1024 = {"sample_num": 1024, "img_size": 192, "sa_npoints": (512, 256, 128, 64),
-         "num_category": 6, "freeze_world_enhancer": False}
+         "num_category": 6, "freeze_world_enhancer": False,
+         "backbone": "resnet18"}
 
 
 def _window(latencies, gap=0.0):
@@ -90,6 +91,8 @@ def _cases():
            for ns in (16, 32)]
     grads = [torch.rand(2, 64, ns, 19, generator=g) for ns in (16, 32)]
     depth = torch.rand(1, 48, 64, generator=g) * (torch.rand(1, 48, 64) > 0.3)
+    fmap = torch.rand(2, 12, 12, 64, generator=g).to(torch.bfloat16)
+    rows = torch.rand(4, 64, generator=g)
     return [
         ("fps", (xyz, 64), torch.zeros(2, 64, dtype=torch.int32)),
         ("ball_query_group", ((0.1, 0.2), (16, 32), xyz, cen, feats),
@@ -103,6 +106,7 @@ def _cases():
         ("interp_scatter", (torch.rand(2, 256, 16), idx[0][:, :, :3],
                             torch.rand(2, 256, 3), 64), torch.zeros(2, 64, 16)),
         ("depth_fill", (depth,), torch.zeros_like(depth)),
+        ("bn_eval", (fmap, rows, "relu", fmap, None), torch.zeros_like(fmap)),
     ]
 
 
